@@ -12,7 +12,8 @@ from setuptools import setup, Extension
 setup(
     name="keynet_tpu",
     version="0.1.0",
-    packages=["keynet_tpu", "keynet_tpu.models", "keynet_tpu.ops", "keynet_tpu.parallel"],
+    packages=["keynet_tpu", "keynet_tpu.models", "keynet_tpu.ops", "keynet_tpu.parallel",
+              "keynet_tpu_torch", "keynet_tpu_torch.models", "keynet_tpu_torch.ops"],
     ext_modules=[
         Extension(
             "keynet_tpu._native",
@@ -24,6 +25,14 @@ setup(
             extra_compile_args=["-O3", "-std=c++17", "-march=native",
                                 "-ffp-contract=off"],
             language="c++",
-        )
+        ),
+        Extension(
+            "keynet_tpu_torch._native",
+            sources=["native/packer.cpp"],
+            include_dirs=[numpy.get_include()],
+            extra_compile_args=["-O3", "-std=c++17", "-march=native",
+                                "-ffp-contract=off"],
+            language="c++",
+        ),
     ],
 )
