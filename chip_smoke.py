@@ -5,27 +5,44 @@
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
-  1. build     the native packer (setup.py build_ext) and the Block-ELL CUDA
-               kernel (nvcc, sm_90a) from the sources in this checkout;
+  1. build     the native packer (setup.py build_ext; a failed build raises:
+               the VGG conversion needs it) and both CUDA sources
+               (csrc/block_ell.cu and csrc/periodic_block_ell.cu, one nvcc
+               each for sm_90a, started together) from this checkout;
   2. parity    every slot-walk entry against its plain PyTorch version on
                seeded random Block-ELL operands (f32 and bf16 tiles, B in
                {1, 5, 130}, KB not a multiple of the depth, n_rb not a
                multiple of 8, an all-zero row, id-0 slots, xresd at depths
-               3 and 4);
-  3. main path launch counts set to 0, then through the user entry points:
-               StochasticKeynet AllConvNet (3x32x32, alpha=2, blocksize 8,
-               seed 0, AllConvNet(seed=1)) at B=64 and B=1024, the 3x16x16
-               test spec (a Block-ELL core with KB=7), and PermutationKeynet
-               LeNet_AvgPool at B=64; each keyed forward is held against the
-               source model on the card (IEEE f32) within 1e-5*max(1, scale);
-               the counts are read right after, and every entry that the
-               driven Block-ELL cores route to must have launched;
-  4. kernels   each entry at the shape its main path gave it (the depth-1
-               entry, which no core routes to on this card, at the shape the
-               JAX package routes it: AllConvNet conv1 at B=1024), plus the
-               depth-2 entry at the full-width conv1 core: kernel, plain
-               version and torch.sparse.mm (BSR) times with CUDA events, and
-               the bound from the card's data-sheet rates.
+               3 and 4), and the periodic kernel against its plain version
+               (f32 and bf16, s = 0 and s > 0, P below 8 and P not a
+               multiple of the 64-row tile, R in {1, 7, 31}, B in
+               {1, 5, 32}, TM = 256, id-0 slots, an all-zero period row);
+  3. main path, slice 1 (launch counts set to 0 just before, read just
+               after): StochasticKeynet AllConvNet (3x32x32, alpha=2,
+               blocksize 8, seed 0, AllConvNet(seed=1)) at B=64 and B=1024,
+               the 3x16x16 test spec (a Block-ELL core with KB=7), and
+               PermutationKeynet LeNet_AvgPool at B=64; each keyed forward
+               is held against the source model on the card (IEEE f32)
+               within 1e-5*max(1, scale); every entry that the driven
+               Block-ELL cores route to must have launched;
+  4. main path, slice 2 (counts set to 0 just before, read just after):
+               the Givens-orthogonal VGG-16 at 3x224x224 (Keynet with
+               local_geometric='givens_orthogonal', alpha=2, blocksize 14,
+               uniform_random_affine, memoryorder 'channel', seed 0,
+               VGG16(seed=5), f32 tiles): conversion seconds, every layer's
+               route, each Block-ELL core's (s, P, R), KB and unique tiles,
+               device bytes; keyed vs source at B=1, 8 and 32 within
+               1e-5*max(1, scale); the periodic kernel must have launched
+               once per periodic core per forward; per-link ms at each B;
+  5. kernels   each slot-walk entry at the shape its main path gave it (the
+               depth-1 entry, which no core routes to on this card, at the
+               shape the JAX package routes it: AllConvNet conv1 at B=1024),
+               plus the depth-2 entry at the full-width conv1 core, and the
+               periodic kernel at the VGG core with the most period slots at
+               B=1 and B=32: kernel, plain version and library times (BSR
+               torch.sparse.mm; torch.bmm over pre-gathered operands for the
+               periodic kernel, gathers not timed) with CUDA events, and the
+               bound from the card's data-sheet rates.
 
 The last lines are the card's name and power limit, a JSON line of kernels,
 and {"ok": true, "device": {...}}.  Nothing here imports JAX or keynet_tpu.
@@ -94,16 +111,18 @@ def phase_build():
                        cwd=ROOT, capture_output=True, text=True, timeout=600)
     log("[build] native packer: rc=%d in %.1f s" % (r.returncode, time.perf_counter() - t))
     if r.returncode:
-        log("[build] native build failed, numpy packing takes over:\n"
-            + r.stderr[-2000:])
+        # numpy packing would turn the VGG conversion's minutes into hours
+        raise RuntimeError("native packer build failed:\n" + r.stderr[-2000:])
     sys.path.insert(0, ROOT)
     import keynet_tpu_torch as kt
     from keynet_tpu_torch.ops import block_ell
-    log("[build] host packing path: %s" % ("native C++" if kt.native.available()
-                                           else "numpy"))
+    if not kt.native.available() or kt.native.spgemm_dr is None:
+        raise RuntimeError("the native packer did not load")
     t = time.perf_counter()
     block_ell.build(verbose=True)
-    log("[build] nvcc block_ell.cu (sm_90a): %.1f s" % (time.perf_counter() - t))
+    log("[build] nvcc %s (sm_90a, in parallel): %.1f s"
+        % (" ".join(os.path.basename(v) for v in block_ell.SOURCES.values()),
+           time.perf_counter() - t))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
@@ -152,38 +171,91 @@ def phase_parity(block_ell):
                 check(err, scale, tol, "%s%s %s %s" % (name, kw, str(dtype), case))
                 key = (name, kw.get("depth"), str(dtype))
                 worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
+    # periodic kernel: (B, s, P, R, KB, n_uniq, n_cb, TM, TN)
+    pcases = [(1, 0, 3, 1, 4, 7, 9, 128, 128), (5, 2, 5, 7, 3, 9, 11, 128, 128),
+              (32, 3, 13, 31, 5, 12, 17, 128, 128), (5, 1, 6, 7, 2, 5, 8, 256, 128),
+              (32, 0, 9, 7, 19, 30, 40, 128, 256)]
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        for case in pcases:
+            B, s0, P, R, KB, n_uniq, n_cb, TM, TN = case
+            n_rb = s0 + P * R + 2
+            x, tiles, ids, cols = random_block_ell(rng, B, n_rb, KB, n_uniq, n_cb,
+                                                   TM, TN, dtype)
+            ids[s0 + P // 2] = 0                    # an all-zero period row
+            for j in range(1, R):                   # the periodicity contract
+                ids[s0 + j * P:s0 + (j + 1) * P] = ids[s0:s0 + P]
+            args = (x, tiles, ids, cols, s0, P, R)
+            ref = block_ell.periodic_block_ell_plain(*args)
+            y = block_ell.periodic_block_ell_matvec(*args)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(err, scale, tol, "periodic_block_ell_matvec %s %s" % (str(dtype), case))
+            key = ("periodic_block_ell_matvec", None, str(dtype))
+            worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
     for (name, depth, dt), e in sorted(worst.items(), key=str):
-        log("[parity] %-24s depth=%-4s %-15s worst max|diff|/max(1,scale) = %.3g"
+        log("[parity] %-25s depth=%-4s %-15s worst max|diff|/max(1,scale) = %.3g"
             % (name, depth, dt, e))
 
 
 # --------------------------------------------------------------- phase 3
 def route_str(op):
-    from keynet_tpu_torch.ops.operators import ChainedOp, PermutedBlockSparseOp
+    from keynet_tpu_torch.ops.operators import (ChainedOp, ChannelBroadcastOp,
+                                                PermutedBlockSparseOp)
     if isinstance(op, ChainedOp):
         return "Chain[%s]" % ", ".join(route_str(o) for o in op.ops)
     if isinstance(op, PermutedBlockSparseOp):
-        return "PermutedBlockSparseOp(Block-ELL %s, %d tiles)" % (
-            tuple(op.inner.tile_ids.shape), op.inner.tiles.shape[0])
+        c = op.inner
+        return "PermutedBlockSparseOp(Block-ELL %s, %d tiles, period %s)" % (
+            tuple(c.tile_ids.shape), c.tiles.shape[0], c.period)
+    if isinstance(op, ChannelBroadcastOp):
+        return "ChannelBroadcastOp(C=%d, %s)" % (op.C, route_str(op.inner))
     return "%s%s" % (type(op).__name__, tuple(op.shape))
 
 
 def block_ell_cores(sensor, knet):
-    """The Block-ELL cores of a keyed sensor and its keyed net."""
+    """The Block-ELL cores of a keyed sensor and its keyed net, as (layer,
+    core, rows the core applies to per image: C for a channel-broadcast
+    pool's spatial factor, else 1)."""
     from keynet_tpu_torch.ops.operators import (BlockSparseOp, ChainedOp,
+                                                ChannelBroadcastOp,
                                                 PermutedBlockSparseOp)
     cores = []
-    ops = [sensor.op()] + [l.op() for l in knet.layers().values() if l != "relu"]
-    for op in ops:
+    ops = [("sensor", sensor.op())] + [(k, l.op()) for k, l in knet.layers().items()
+                                       if l != "relu"]
+    for name, op in ops:
         for link in (op.ops if isinstance(op, ChainedOp) else (op,)):
+            per_image = 1
+            if isinstance(link, ChannelBroadcastOp):
+                link, per_image = link.inner, link.C
             if isinstance(link, PermutedBlockSparseOp):
                 link = link.inner
             if isinstance(link, BlockSparseOp):
-                cores.append(link)
+                cores.append((name, link, per_image))
     return cores
 
 
-def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True):
+def entries_of(block_ell, core, B):
+    """The kernel entries one apply of ``core`` to B rows launches on the
+    card (BlockSparseOp.apply): the periodic kernel for the mid-section
+    when the period route is taken, none when the grouped-row einsum is,
+    else the slot walk of route(KB) for the rows outside the period."""
+    import torch
+    n_rb, KB = core.tile_ids.shape
+    if core.period is not None:
+        s, P, R = core.period
+        if B <= (R - 1) * core.tileshape[0] // R:
+            rest = {block_ell.route(KB).__name__} if s or s + P * R < n_rb else set()
+            return {"periodic_block_ell_matvec"} | rest
+    elif core._rgroups is not None and core._grouped_wins(B, torch.device("cuda")):
+        return set()
+    return {block_ell.route(KB).__name__}
+
+
+def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5):
+    """Encrypt a seeded batch, hold the keyed forward against the source
+    forward, and time the keyed forward; returns (cipher batch, keyed
+    forwards run)."""
     import numpy as np
     import torch
     x = np.random.default_rng(seed).standard_normal((B, *net.inshape)).astype(np.float32)
@@ -199,14 +271,16 @@ def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True):
     scale = float(ys.abs().max())
     check(err, scale, TOL_F32, "%s keyed vs source" % label)
     res = {"B": B, "max_abs_err": err, "scale": scale}
+    forwards = 1
     if timing:
-        ms, times = cuda_ms(lambda: knet.forward(xc), reps=5, warmup=1)
+        ms, times = cuda_ms(lambda: knet.forward(xc), reps=reps, warmup=1)
         res.update(ms=ms, imgs_per_s=B / (ms / 1e3), reps_ms=times)
+        forwards += 1 + reps
     log("[main] %s B=%d: %s" % (label, B, json.dumps(res)))
-    return xc
+    return xc, forwards
 
 
-def phase_main(kt, block_ell):
+def phase_main_allconv(kt, block_ell):
     import numpy as np
     import torch
     net = kt.models.AllConvNet(seed=1)
@@ -244,26 +318,88 @@ def phase_main(kt, block_ell):
     log("[main] LeNet_AvgPool PermutationKeynet nnz = %d" % lk.num_parameters())
 
     block_ell.reset_launches()
-    xcs = {B: keyed_vs_source(kt, net, sensor, knet, B, B, "AllConvNet")
+    xcs = {B: keyed_vs_source(kt, net, sensor, knet, B, B, "AllConvNet")[0]
            for B in (64, 1024)}
-    xn = keyed_vs_source(kt, narrow, ns, nk, 64, 7, "narrow 3x16x16 spec")
+    xn = keyed_vs_source(kt, narrow, ns, nk, 64, 7, "narrow 3x16x16 spec")[0]
     keyed_vs_source(kt, lenet, ls, lk, 64, 3, "LeNet_AvgPool")
     torch.cuda.synchronize()
     launches = dict(block_ell.LAUNCHES)
     log("[main] launches: %s" % json.dumps(launches))
     routed = sorted({block_ell.route(c.tile_ids.shape[1]).__name__
                      for s, k in ((sensor, knet), (ns, nk), (ls, lk))
-                     for c in block_ell_cores(s, k)})
+                     for _, c, _ in block_ell_cores(s, k)})
     log("[main] entries routed by the driven Block-ELL cores: %s" % routed)
     for name in routed:
         if launches[name] <= 0:
             raise AssertionError("%s was not launched on the main path" % name)
     for B in (64, 1024):
-        layer_breakdown(knet, xcs[B])
+        layer_breakdown("AllConvNet", knet, xcs[B])
     return {"allconv": (knet, xcs), "narrow": (nk, xn)}, launches
 
 
-def layer_breakdown(knet, xc):
+def phase_main_vgg(kt, block_ell):
+    """Slice 2: the Givens-orthogonal VGG-16 at 3x224x224 through kt.Keynet,
+    keyed vs source at B=1, 8 and 32, with the launches read right after."""
+    import torch
+    net = kt.models.VGG16(seed=5)
+    t = time.perf_counter()
+    sensor, knet = kt.Keynet((3, 224, 224), net, global_geometric="identity",
+                             local_geometric="givens_orthogonal", alpha=2.0,
+                             blocksize=14, local_photometric="uniform_random_affine",
+                             beta=1.0, gamma=1.0, memoryorder="channel", seed=0,
+                             device="cuda")
+    conv_s = time.perf_counter() - t
+    log("[vgg] conversion: %.1f s (host), nnz %d" % (conv_s, knet.num_parameters()))
+    log("[vgg] route sensor: %s" % route_str(sensor.op()))
+    for name, l in knet.layers().items():
+        if l != "relu":
+            log("[vgg] route %s: %s" % (name, route_str(l.op())))
+    cores = block_ell_cores(sensor, knet)
+    for name, c, _ in cores:
+        log("[vgg] core %s: %s" % (name, json.dumps(dict(
+            rows=int(c.tile_ids.shape[0]), KB=int(c.tile_ids.shape[1]),
+            unique_tiles=int(c.tiles.shape[0]), period=c.period,
+            nonzero_slots=int((c.tile_ids > 0).sum())))))
+    gate = int(kt.globals.GLOBAL.get("PERIODIC_EXPAND_BYTES", 512 << 20))
+    texp = sum(c._expand_bytes() for _, c, _ in cores
+               if c.period is not None and c._expand_bytes() <= gate)
+    knet._build()
+    log("[vgg] device_bytes: %d (keyed net on the card), sensor %d; the expanded "
+        "period tiles keynet_tpu keeps besides (_Texp, within PERIODIC_EXPAND_BYTES): %d"
+        % (knet.device_bytes(), sensor.device_bytes(), texp))
+
+    block_ell.reset_launches()
+    xcs, forwards = {}, {}
+    for B in (1, 8, 32):
+        xcs[B], forwards[B] = keyed_vs_source(kt, net, sensor, knet, B, 100 + B,
+                                              "VGG16 orth", reps=5 if B < 32 else 3)
+    torch.cuda.synchronize()
+    launches = dict(block_ell.LAUNCHES)
+    log("[vgg] launches: %s" % json.dumps(launches))
+    periodic = [(n, c, m) for n, c, m in cores if c.period is not None]
+    if not periodic:
+        raise AssertionError("no periodic Block-ELL core on the VGG path")
+    want = sum(forwards[B] * sum("periodic_block_ell_matvec"
+                                 in entries_of(block_ell, c, B * m)
+                                 for n, c, m in periodic if n != "sensor")
+               for B in forwards)
+    log("[vgg] periodic cores: %s; periodic launches %d, at least %d wanted"
+        % ([n for n, _, _ in periodic], launches["periodic_block_ell_matvec"], want))
+    if launches["periodic_block_ell_matvec"] < want or want == 0:
+        raise AssertionError("periodic_block_ell_matvec launched %d times, want >= %d"
+                             % (launches["periodic_block_ell_matvec"], want))
+    routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for _, c, m in cores
+                                  for B in forwards)))
+    log("[vgg] entries routed by the driven Block-ELL cores: %s" % routed)
+    for name in routed:
+        if launches[name] <= 0:
+            raise AssertionError("%s was not launched on the VGG path" % name)
+    for B in (1, 8, 32):
+        layer_breakdown("VGG16 orth", knet, xcs[B])
+    return {"vgg": (knet, xcs, cores)}, launches
+
+
+def layer_breakdown(label, knet, xc):
     """Device time of every link of every keyed layer (CUDA events, median
     of 3), fed the activations the forward gives it."""
     import torch
@@ -283,19 +419,35 @@ def layer_breakdown(knet, xc):
             x = link.apply(x)
         if l._relu:
             x = torch.clamp_min(x, 0.0)
-    log("[main] AllConvNet B=%d per-link ms (sum %.3f): %s"
-        % (xc.shape[0], sum(rows.values()), json.dumps(rows)))
+    log("[main] %s B=%d per-link ms (sum %.3f): %s"
+        % (label, xc.shape[0], sum(rows.values()), json.dumps(rows)))
 
 
 # --------------------------------------------------------------- phase 4
-def core_input(knet, xc):
-    """conv1's Block-ELL core and the padded x it receives in the forward."""
+def core_input(knet, xc, layer="conv1"):
+    """``layer``'s Block-ELL core and the padded x it receives in the
+    forward of the cipher batch ``xc``."""
     import torch
     import torch.nn.functional as F
-    chain = knet.layers()["conv1"].op()
-    x1 = chain.ops[0].apply(xc)
-    pb = chain.ops[1]
-    xl = torch.cat([pb._to_layout(x1[:, :-1], pb.layout_in), x1[:, -1:]], dim=1)
+    from keynet_tpu_torch.ops.operators import ChainedOp, PermutedBlockSparseOp
+    knet._build()
+    x, i = xc, 0
+    for name, l in knet.layers().items():
+        if l == "relu":
+            x = torch.clamp_min(x, 0.0)
+            continue
+        op = knet._ops[i]
+        i += 1
+        if name == layer:
+            break
+        x = op.apply(x)
+        if l._relu:
+            x = torch.clamp_min(x, 0.0)
+    for pb in (op.ops if isinstance(op, ChainedOp) else (op,)):
+        if isinstance(pb, PermutedBlockSparseOp):
+            break
+        x = pb.apply(x)
+    xl = torch.cat([pb._to_layout(x[:, :-1], pb.layout_in), x[:, -1:]], dim=1)
     inner = pb.inner
     TN = inner.tileshape[1]
     n_cb = -(-inner.shape[1] // TN)
@@ -347,7 +499,7 @@ def measure(block_ell, fn, kw, model, xc, where, peaks):
     checked against the plain version, then timed with the plain version and
     the BSR yardstick beside it."""
     import torch
-    inner, x = core_input(model, xc)
+    inner, x = core_input(model, xc, "conv1")
     B = x.shape[0]
     n_out = inner.tile_ids.shape[0] * inner.tileshape[0]
     args = (x, inner.tiles, inner.tile_ids, inner.col_blk, n_out)
@@ -373,7 +525,7 @@ def measure(block_ell, fn, kw, model, xc, where, peaks):
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
-def phase_kernels(block_ell, paths, launches, peaks):
+def phase_kernels(block_ell, paths, launches, vgg_launches, peaks):
     knet, xcs = paths["allconv"]
     nk, xn = paths["narrow"]
     be = block_ell
@@ -398,7 +550,103 @@ def phase_kernels(block_ell, paths, launches, peaks):
             "AllConvNet conv1 core, B=64 (full width)", peaks)
     measure(be, be.block_ell_matmul_xresd, {"depth": 4}, knet, xcs[1024],
             "AllConvNet conv1 core, B=1024", peaks)
+    # the periodic kernel at the VGG core with the most period slots
+    vknet, vxcs, cores = paths["vgg"]
+    name, core = max(((n, c) for n, c, _ in cores if c.period is not None),
+                     key=lambda nc: periodic_work(nc[1])["slots"])
+    row = {"name": "periodic_block_ell_matvec", "route": "cuda",
+           "source": "keynet_tpu_torch/csrc/periodic_block_ell.cu",
+           "replaces": "keynet_tpu/ops/pallas_kernels.py:551",
+           "launches": vgg_launches["periodic_block_ell_matvec"]}
+    for B in (32, 1):
+        r = measure_periodic(be, vknet, vxcs[B], name, peaks)
+        if B == 1:
+            row.update(r)
+    rows.append(row)
     return rows
+
+
+def periodic_work(core, B=1):
+    """Slots, FLOPs and least bytes of one periodic mid-section apply at
+    batch B: each referenced tile read once, x read once, the f32 output
+    written once, the period's ids and the mid rows' column blocks read."""
+    import torch
+    s, P, R = core.period
+    ids = core.tile_ids[s:s + P]
+    TM, TN = core.tileshape
+    it = core.tiles.element_size()
+    nz = int((ids > 0).sum())
+    uniq = int(torch.unique(ids[ids > 0]).numel())
+    n_cols = -(-core.shape[1] // TN) * TN
+    return dict(slots=nz * R, flops=2.0 * TM * TN * B * R * nz,
+                bytes=uniq * TM * TN * it + B * n_cols * it + B * P * R * TM * 4
+                + ids.numel() * 4 + P * R * ids.shape[1] * 4,
+                period_tile_bytes=nz * TM * TN * it, unique_tiles=uniq)
+
+
+def bmm_library_ms(core, x):
+    """One torch.bmm over the pre-gathered x blocks and the expanded period
+    tiles, batch P, (R·B, KB·TN) x (KB·TN, TM) — the yardstick, timed
+    without its gathers; the port never calls it.  None when the gathered
+    operands would not fit the card beside the keyed net."""
+    import torch
+    s, P, R = core.period
+    KB = core.tile_ids.shape[1]
+    TM, TN = core.tileshape
+    B = x.shape[0]
+    need = 4 * P * (R * B * KB * TN + KB * TN * TM + R * B * TM)
+    free = torch.cuda.mem_get_info()[0]
+    if need > 0.8 * free:
+        log("[kernels] torch.bmm yardstick at B=%d skipped: its gathered operands "
+            "take %.1f GB, %.1f GB free" % (B, need / 1e9, free / 1e9))
+        return None, None
+    xb = x.float().reshape(B, -1, TN)
+    cols = core.col_blk[s:s + P * R].long().reshape(R, P, KB).permute(1, 0, 2)
+    b = torch.arange(B, device=x.device)
+    Xg = xb[b[None, None, :, None], cols[:, :, None, :]]          # (P, R, B, KB, TN)
+    Xg = Xg.reshape(P, R * B, KB * TN)
+    Tg = core.tiles[core.tile_ids[s:s + P].long()].float()         # (P, KB, TM, TN)
+    Tg = Tg.permute(0, 1, 3, 2).reshape(P, KB * TN, TM)
+    y = torch.bmm(Xg, Tg)                                          # (P, R*B, TM)
+    ms, _ = cuda_ms(lambda: torch.bmm(Xg, Tg), reps=5)
+    y = y.reshape(P, R, B, TM).permute(2, 1, 0, 3).reshape(B, -1)
+    return ms, y
+
+
+def measure_periodic(block_ell, knet, xc, layer, peaks):
+    """The periodic kernel on ``layer``'s core fed the activations of
+    ``xc``: checked against the plain version, timed beside it and the
+    torch.bmm yardstick."""
+    import torch
+    core, x = core_input(knet, xc, layer)
+    B = x.shape[0]
+    s, P, R = core.period
+    args = (x, core.tiles, core.tile_ids, core.col_blk, s, P, R)
+    y = block_ell.periodic_block_ell_matvec(*args)
+    ref = block_ell.periodic_block_ell_plain(*args)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    where = "VGG16 orth %s core %s, B=%d" % (layer, core.period, B)
+    check(err, float(ref.abs().max()), TOL_F32, "periodic_block_ell_matvec at " + where)
+    ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_matvec(*args), reps=10)
+    plain_ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_plain(*args), reps=3)
+    lib_ms, ylib = bmm_library_ms(core, x)
+    lib_err = None if ylib is None else float((ylib - ref).abs().max())
+    del ylib
+    work = periodic_work(core, B)
+    peak = peaks["f32"] if core.tiles.dtype == torch.float32 else peaks["bf16"]
+    t_ops, t_bytes = work["flops"] / peak, work["bytes"] / peaks["bw"]
+    bms = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    log("[kernels] periodic_block_ell_matvec at %s: %s" % (where, json.dumps(dict(
+        work, KB=int(core.tile_ids.shape[1]), ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, library_max_abs_err=lib_err, bound_ms=bms, bound_by=by,
+        period_tiles_once_ms=work["period_tile_bytes"] / peaks["bw"] * 1e3,
+        achieved_tflops=work["flops"] / ms / 1e9))))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
 
 
 def main():
@@ -414,8 +662,10 @@ def main():
     log("[build] device %s (%d visible); bounds use %s data-sheet rates %s"
         % (name, torch.cuda.device_count(), card, json.dumps(peaks)))
     phase_parity(block_ell)
-    paths, launches = phase_main(kt, block_ell)
-    rows = phase_kernels(block_ell, paths, launches, peaks)
+    paths, launches = phase_main_allconv(kt, block_ell)
+    vgg_paths, vgg_launches = phase_main_vgg(kt, block_ell)
+    paths.update(vgg_paths)
+    rows = phase_kernels(block_ell, paths, launches, vgg_launches, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))
     print(smi)
     print(json.dumps({"kernels": rows}))

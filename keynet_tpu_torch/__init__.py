@@ -4,7 +4,8 @@ The port of keynet_tpu (JAX/Pallas on a TPU), which stays the reference.
 Host conversion (keygen, Toeplitz lowering, keying Ŵ = A·W·A⁻¹, packing)
 is numpy/scipy/C++ with the same rng draws, so the same seed gives the same
 keys and packed arrays; the keyed forward runs in PyTorch with the Block-ELL
-slot walk as a hand-written CUDA kernel (csrc/block_ell.cu).
+slot walk and its periodic mid-section as hand-written CUDA kernels
+(csrc/block_ell.cu, csrc/periodic_block_ell.cu).
 
 Quickstart:
 

@@ -117,20 +117,22 @@ class KeyedLayer:
                                            module.stride))
             return
 
-        # Big keyed avgpools factor into I_C ⊗ (spatial) in the JAX package
-        # (ops.kronfactor.channel_broadcast_keyed_pool, ChannelBroadcastOp);
-        # that route is not ported yet, so such a layer raises instead of
-        # taking a different route than the reference.
+        # Big keyed avgpools with per-channel-identical keys factor into
+        # I_C ⊗ (spatial) and store/apply only the spatial factor — C× less
+        # device memory and batched spatial products instead of a scalar ELL
+        # gather (see ops.kronfactor.channel_broadcast_keyed_pool).  Tried
+        # BEFORE the dense-inverse split below: the spatial-scale product
+        # never materializes the p²-per-row fill the split exists to avoid.
         pool_op = None
         if isinstance(module, specs.AvgPool2d) and W is None \
                 and inshape is not None and len(inshape) == 3 \
                 and outshape is not None \
                 and int(np.prod(outshape)) >= int(GLOBAL.get("POOL_FACTOR_MIN_N",
                                                              20_000)):
-            raise NotImplementedError(
-                "keyed avgpool with %d outputs takes the channel-broadcast "
-                "route, which keynet_tpu_torch does not port yet"
-                % int(np.prod(outshape)))
+            from .ops.kronfactor import channel_broadcast_keyed_pool
+            pool_op = channel_broadcast_keyed_pool(
+                inshape, outshape, module.kernel_size, module.stride, A, Ainv,
+                tileshape=tileshape)
 
         # Dense-blocks inverse input keys (doubly-stochastic locals) are split
         # behind a secret re-key R so the p²-per-row fill of W·A⁻¹ never
@@ -180,6 +182,7 @@ class KeyedLayer:
                 # factors) publish as a Kronecker-factored masked chain
                 # (tens of MB of dense factors + dense matmuls,
                 # ops/kronfactor.py); everything else streams strips.
+                from .ops.streaming import masked_keyed_conv_streaming
                 from .ops.kronfactor import kron_factored_keyed_conv
                 import scipy.sparse as _sp
                 A_ = A if A is not None else _sp.identity(n_out_h, format="csr")
@@ -189,9 +192,8 @@ class KeyedLayer:
                 # DECLINES must not perturb the stream the taken route reads,
                 # or seeded mask reproducibility would depend on which routes
                 # were tried.  spawn() is deterministic from the seed, so
-                # same seed -> same artifact; the second child belongs to the
-                # (unported) streaming route and is drawn for stream parity.
-                rng_kron, _ = self._rng.spawn(2)
+                # same seed -> same artifact.
+                rng_kron, rng_stream = self._rng.spawn(2)
                 if GLOBAL.get("KRON_FACTORED", "auto") != "never":
                     # the Kron chain is all dense GEMMs: split with the dense
                     # Haar mask (published F2 block exactly Haar-masked)
@@ -206,11 +208,20 @@ class KeyedLayer:
                     if op is not None and s is not None:
                         self._pending_f2 = s[1]
                 if op is None and streaming_scale:
-                    # the JAX package streams strips here
-                    # (masked_keyed_conv_streaming), not ported yet
-                    raise NotImplementedError(
-                        "conv %r needs strip streaming (Toeplitz nnz %d), which "
-                        "keynet_tpu_torch does not port yet" % (module.name, pred_nnz))
+                    # streaming route: thin Givens mask (fill = mixing is the
+                    # binding constraint; keyed-interposition security)
+                    s = self._try_split(Ainv_, module, force_thin=True,
+                                        rng=rng_stream)
+                    if s is not None:
+                        Ainv_, self._pending_f2 = s[0], s[1]
+                    op = masked_keyed_conv_streaming(inshape, outshape,
+                                                     params["weight"],
+                                                     params["bias"],
+                                                     module.stride, A_, Ainv_,
+                                                     rng=rng_stream,
+                                                     mask_alpha=mask_alpha,
+                                                     tileshape=tileshape
+                                                     or DEFAULT_TILE)
                 if op is not None:
                     self._op = op
                     self._chain_f2()

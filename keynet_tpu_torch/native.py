@@ -55,6 +55,21 @@ try:
     tile_hashes128 = getattr(_native, "tile_hashes128", None)
     emit_pba_fill = getattr(_native, "emit_pba_fill", None)
     pack_csr_hash = getattr(_native, "pack_csr_hash", None)
+    spgemm_dr = getattr(_native, "spgemm_dr", None)
+    if spgemm_dr is not None:
+        # stale-build probe: newer builds accept d=None (plain S*R product)
+        try:
+            _ip = _np.zeros(2, dtype=_np.int64)
+            spgemm_dr(_ip, _np.zeros(0, dtype=_np.int32),
+                      _np.zeros(0, dtype=_np.float32), None,
+                      _np.zeros(1, dtype=_np.int64),
+                      _np.zeros(0, dtype=_np.int32),
+                      _np.zeros(0, dtype=_np.float32),
+                      _ip.copy(), _np.zeros(0, dtype=_np.int32),
+                      _np.zeros(0, dtype=_np.float32))
+        except TypeError:
+            raise ImportError("stale _native build: rebuild with "
+                              "`python setup.py build_ext --inplace`")
 except ImportError:  # pragma: no cover - exercised when ext is not built
     _native = None
 
@@ -69,3 +84,4 @@ except ImportError:  # pragma: no cover - exercised when ext is not built
     tile_hashes128 = None
     emit_pba_fill = None
     pack_csr_hash = None
+    spgemm_dr = None

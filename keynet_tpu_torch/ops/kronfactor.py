@@ -1,4 +1,5 @@
-"""Kronecker-factored keyed convolutions.
+"""Kronecker-factored keyed convolutions, and channel-broadcast keyed pools
+(channel_broadcast_keyed_pool, at the end).
 
 A conv's Toeplitz matrix is exactly a sum of Kronecker products over its taps
 
@@ -280,4 +281,103 @@ def kron_factored_keyed_conv(inshape, outshape, weight, bias, stride,
         vprint("[kron_factored_keyed_conv]: selfcheck ok (err %.3g)" % err)
 
     op.kron_stats = {"taps": T, "p_in": p1, "p_out": p2}
+    return op
+
+
+def channel_broadcast_keyed_pool(inshape, outshape, kernelsize, stride,
+                                 A, Ainv, tileshape=None, selfcheck=True):
+    """Factor a keyed avgpool Ŵ = A·W_pool·A⁻¹ with per-channel-identical
+    keys into its channel-broadcast form I_C ⊗ (D̃_out·S·D̃_in') and return a
+    ChannelBroadcastOp, or None when the structure does not hold.
+
+    W_pool is a conv with a constant 1/k² channel-diagonal filter
+    (reference keynet/sparse.py:206-212), i.e. W = I_C ⊗ S for the
+    single-channel pool Toeplitz S, so per-channel-identical keys conjugate
+    it block-by-block.  Unlike kron_factored_keyed_conv there is no npix cap:
+    the spatial factor stays SPARSE (D̃ is block-diagonal over keygen's local
+    pixel runs, S is a 9-tap window), and no masking is needed — the
+    materialized pool matrix is I_C ⊗ M verbatim, so publishing M reveals
+    nothing extra.  ``selfcheck`` verifies against the full sparse sandwich
+    on random vectors (cheap matvecs, in torch on the CPU) and rejects on
+    mismatch.
+    """
+    from .streaming import _key_blocks_identical
+    from .operators import ChannelBroadcastOp, materialize, DEFAULT_TILE
+    from ..toeplitz import toeplitz_avgpool2d
+
+    C1, H1, W1 = inshape
+    C2, H2, W2 = outshape
+    if C1 != C2:
+        return None
+    p1, p2 = H1 * W1, H2 * W2
+    n1, n2 = C1 * p1, C2 * p2
+
+    def _side(M, p, n):
+        """(sparse spatial block D, (p,) bias) or None."""
+        if M is None:
+            return (scipy.sparse.identity(p, format="csr", dtype=np.float32),
+                    np.zeros(p, dtype=np.float32))
+        if M.shape[0] - 1 != n or not _key_blocks_identical(M, p):
+            return None
+        M = scipy.sparse.csr_matrix(M)
+        D = M[:p, :p].astype(np.float32).tocsr()
+        b = np.asarray(M[:p, [n]].todense(), dtype=np.float32).ravel()
+        return D, b
+
+    fo = _side(A, p2, n2)
+    if fo is None:
+        return None
+    D_out, b_out = fo
+    fi = _side(Ainv, p1, n1)
+    if fi is None:
+        return None
+    D_in, b_in = fi
+
+    S = scipy.sparse.csr_matrix(
+        toeplitz_avgpool2d((1, H1, W1), kernelsize, stride))[:p2, :p1]
+    M_sp = (D_out @ S @ D_in).tocsr()
+    M_sp.eliminate_zeros()
+    b_sp = (D_out @ (S @ b_in) + b_out).astype(np.float32)
+
+    # The spatial factor always stays f32: it is tiny next to the conv tile
+    # stores (the factored pool IS the compression — C× fewer bytes), and
+    # bf16 tiles cost ~2e-3 relative error (measured at VGG-224 pool2_2,
+    # the one pool whose factor lands in Block-ELL), which breaks the f32
+    # equivalence tier and trips the selfcheck into the slow ELL fallback.
+    old_dt = GLOBAL.get("TILE_DTYPE")
+    GLOBAL["TILE_DTYPE"] = "float32"
+    try:
+        inner = materialize(M_sp, tileshape=tileshape or DEFAULT_TILE,
+                            dense_max_bytes=min(GLOBAL["DENSE_MAX_BYTES"], 32 << 20))
+    finally:
+        if old_dt is None:
+            GLOBAL.pop("TILE_DTYPE", None)
+        else:
+            GLOBAL["TILE_DTYPE"] = old_dt
+    nnz = C1 * (int(M_sp.nnz) + int(np.count_nonzero(b_sp))) + 1
+    op = ChannelBroadcastOp(inner, C1, b_sp, nnz=nnz)
+
+    if selfcheck:
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((2, n1 + 1)).astype(np.float32)
+        x[:, -1] = 1.0
+        got = op.apply(torch.from_numpy(x)).numpy()   # CPU tensors at conversion
+        W_hom = scipy.sparse.csr_matrix(
+            toeplitz_avgpool2d(inshape, kernelsize, stride))
+        z = x.T
+        if Ainv is not None:
+            z = scipy.sparse.csr_matrix(Ainv, dtype=np.float32) @ z
+        z = W_hom @ z
+        if A is not None:
+            z = scipy.sparse.csr_matrix(A, dtype=np.float32) @ z
+        ref = np.asarray(z.T)
+        err = np.abs(got - ref).max()
+        scale = max(1.0, np.abs(ref).max())
+        if err > 1e-3 * scale:
+            vprint("[channel_broadcast_keyed_pool]: selfcheck FAILED "
+                   "(err %.3g, scale %.3g) — falling back" % (err, scale))
+            return None
+        vprint("[channel_broadcast_keyed_pool]: selfcheck ok (err %.3g, "
+               "%s spatial factor, %d nnz)" % (err, type(inner).__name__,
+                                               M_sp.nnz))
     return op

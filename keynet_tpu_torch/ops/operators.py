@@ -7,9 +7,12 @@ memory:
   * DenseOp  — one matmul.  Best whenever the dense footprint is small.
   * BlockSparseOp — Block-ELL: (TM, TN) tiles, only nonzero tiles stored,
     deduplicated by content, each tile-row padded to the max tile count.
-    On a CUDA tensor the slot walk is the hand-written kernel in
-    ops/block_ell.py; on a CPU tensor its plain PyTorch version.
+    On a CUDA tensor the slot walk and the periodic mid-section are the
+    hand-written kernels in ops/block_ell.py; on a CPU tensor their plain
+    PyTorch versions.
   * EllOp    — row-wise fixed-K scalar sparse (gather + weighted reduce).
+  * ChannelBroadcastOp — I_C ⊗ M for keyed pools with per-channel-identical
+    keys, M any of the above.
 
 All operators implement apply(x) with x: (B, n_in) -> (B, n_out), i.e.
 y = x @ W^T, and hold their arrays as tensors on one device; ``to(device)``
@@ -186,11 +189,14 @@ class BlockSparseOp(LinearOp):
       y[:, r] = sum_k tiles[tile_ids[r,k]] @ x[:, col_blk[r,k]]
 
     ``period=(s, P, R)`` records row-block periodicity (tile_ids rows
-    s+rho+j*P identical for j in [0,R)); the periodic rows apply as one
-    einsum over the period's tiles, gathered once.  Non-periodic ops whose
-    rows repeat in arbitrary order get a grouped-row plan (find_row_groups).
+    s+rho+j*P identical for j in [0,R)); on a CUDA tensor the periodic rows
+    launch the periodic kernel (ops/block_ell.periodic_block_ell_matvec),
+    which reads each tile through tile_ids, and on a CPU tensor they apply
+    as one einsum over the period's tiles, expanded once (``_Texp``, kept
+    only beside CPU tiles).  Non-periodic ops whose rows repeat in arbitrary
+    order get a grouped-row plan (find_row_groups).
     """
-    _tensors = ("tiles", "tile_ids", "col_blk", "_Texp", "_rgroup_inv")
+    _tensors = ("tiles", "tile_ids", "col_blk", "_rgroup_inv")
 
     def __init__(self, tiles, tile_ids, col_blk, shape, tileshape, nnz,
                  period=None):
@@ -214,12 +220,8 @@ class BlockSparseOp(LinearOp):
                     or int(cbs.min()) < 0 \
                     or int(cbs.max()) >= _cdiv(self.shape[1], TN):
                 raise ValueError("Block-ELL tile_ids/col_blk out of range")
-        # period tile set (P, KB, TM, TN), expanded once and kept on device
         self._Texp = None
-        if self.period is not None and self._expand_bytes() <= int(
-                GLOBAL.get("PERIODIC_EXPAND_BYTES", 512 << 20)):
-            s, P, _ = self.period
-            self._Texp = self.tiles[self.tile_ids[s:s + P].long()]
+        self._sync_texp()
         self._rgroups = None
         self._rgroup_meta = ()
         self._rgroup_inv = None
@@ -245,7 +247,22 @@ class BlockSparseOp(LinearOp):
         super().to(device)
         if self._rgroups is not None:
             self._rgroups = [(p.to(device), c.to(device)) for p, c in self._rgroups]
+        self._sync_texp()
         return self
+
+    def _sync_texp(self):
+        """Keep the period's expanded tile set tiles[tile_ids[s:s+P]]
+        (P, KB, TM, TN) where the plain periodic einsum uses it: beside CPU
+        tiles, within GLOBAL['PERIODIC_EXPAND_BYTES'].  The expansion is the
+        TPU's way round a per-forward gather; the CUDA kernel reads tiles
+        through tile_ids, so none is kept beside CUDA tiles."""
+        if self.period is None or self.tiles.device.type != "cpu" \
+                or self._expand_bytes() > int(GLOBAL.get("PERIODIC_EXPAND_BYTES",
+                                                         512 << 20)):
+            self._Texp = None
+        elif self._Texp is None:
+            s, P, _ = self.period
+            self._Texp = self.tiles[self.tile_ids[s:s + P].long()]
 
     def _expand_bytes(self):
         if self.period is None:
@@ -309,12 +326,11 @@ class BlockSparseOp(LinearOp):
         x = x.contiguous()
 
         if self.period is not None and B <= (self.period[2] - 1) * TM // self.period[2]:
-            xb = x.reshape(B, n_cb, TN)
             s, P, R = self.period
             parts = []
             if s:
                 parts.append(self._apply_rows(x, 0, s))
-            parts.append(self._apply_periodic_mid(xb))
+            parts.append(self._apply_periodic_mid(x))
             if s + P * R < n_rb:
                 parts.append(self._apply_rows(x, s + P * R, n_rb))
             y = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
@@ -375,26 +391,17 @@ class BlockSparseOp(LinearOp):
         return kfn(x, self.tiles, self.tile_ids[a:b], self.col_blk[a:b],
                    (b - a) * TM)
 
-    def _apply_periodic_mid(self, xb):
-        """Rows [s, s+P*R): one batched einsum per R-chunk; the repeated tiles
-        are gathered once (P*KB tiles), not once per slot."""
+    def _apply_periodic_mid(self, x):
+        """Rows [s, s+P*R) on the padded (B, n_cb*TN) x: the periodic kernel
+        on a CUDA tensor, its plain einsum over the expanded period tiles on
+        a CPU tensor (ops/block_ell.py).  Returns (B, P*R*TM) f32."""
+        from .block_ell import periodic_block_ell_matvec, periodic_block_ell_plain
         s, P, R = self.period
-        B = xb.shape[0]
-        TM, TN = self.tileshape
-        KB = self.tile_ids.shape[1]
-        T = self._Texp if self._Texp is not None \
-            else self.tiles[self.tile_ids[s:s + P].long()]   # (P, KB, TM, TN)
-        T = T.float()
-        cols = self.col_blk[s:s + P * R].long().reshape(R, P, KB)
-        budget = int(GLOBAL.get("PERIODIC_X_CHUNK_BYTES", 256 << 20))
-        itemsize = self.tiles.element_size()
-        rc = max(1, min(R, budget // max(1, B * P * KB * TN * itemsize)))
-        parts = []
-        for j0 in range(0, R, rc):
-            Xt = xb[:, cols[j0:j0 + rc]].float()            # (B, rj, P, KB, TN)
-            y = torch.einsum("brpkn,pkmn->brpm", Xt, T)
-            parts.append(y.reshape(B, -1))
-        return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        if x.device.type == "cpu":
+            return periodic_block_ell_plain(x, self.tiles, self.tile_ids,
+                                            self.col_blk, s, P, R, texp=self._Texp)
+        return periodic_block_ell_matvec(x, self.tiles, self.tile_ids,
+                                         self.col_blk, s, P, R)
 
     def nnz(self):
         return self._nnz
@@ -875,6 +882,63 @@ class TapSumOp(LinearOp):
 
     def arrays(self):
         return {"K": self.K, "S": self.S, "bias": self.bias}
+
+
+class ChannelBroadcastOp(LinearOp):
+    """Homogeneous channel-broadcast operator  [[I_C ⊗ M, 1_C ⊗ b], [0, 1]]
+    for a per-channel-identical keyed spatial action M: (p2, p1).
+
+    A keyed avgpool Ŵ = A·W·A⁻¹ whose keys have identical per-channel
+    spatial blocks (A = I_C ⊗ D̃, the structure keygen's local families
+    produce; see ops/kronfactor.py) is exactly I_C ⊗ (D̃_out·S·D̃_in') with S
+    the single-channel pool Toeplitz — the device analog of the reference's
+    channel-broadcast Conv2dTiledMatrix (keynet/sparse.py:690-777) composed
+    with its avgpool lowering (keynet/sparse.py:206-212).  Storing only the
+    spatial factor is C× smaller than the materialized pool, and the apply
+    batches all channels through the factor as (B·C, p1) rows.
+
+    Publishing the factor reveals nothing the materialized pool would not:
+    the materialized matrix IS I_C ⊗ M, so M is readable off it directly.
+
+    ``inner`` is any LinearOp over the NON-homogeneous spatial vectors
+    ((N, p1) -> (N, p2)); ``bias_sp`` is the (p2,) per-channel bias (the keyed
+    pool's bias column is p2-periodic because both key biases are).
+    """
+    _tensors = ("bias_sp",)
+
+    def __init__(self, inner, C, bias_sp, nnz=None):
+        self.inner = inner      # LinearOp (p2, p1)
+        self.C = int(C)
+        self.bias_sp = _t(bias_sp, torch.float32)  # (p2,)
+        p2, p1 = inner.shape
+        self.shape = (self.C * p2 + 1, self.C * p1 + 1)
+        self._nnz = int(nnz) if nnz is not None else \
+            self.C * (inner.nnz() + int(torch.count_nonzero(self.bias_sp))) + 1
+
+    def to(self, device):
+        super().to(device)
+        self.inner.to(device)
+        return self
+
+    def apply(self, x):
+        B = x.shape[0]
+        p2, p1 = self.inner.shape
+        xh = x[:, -1:]
+        yc = self.inner.apply(x[:, :-1].reshape(B * self.C, p1))
+        yc = yc.reshape(B, self.C, p2) + xh[:, :, None] * self.bias_sp[None, None, :]
+        return torch.cat([yc.reshape(B, -1), xh], dim=1)
+
+    def nnz(self):
+        return self._nnz
+
+    def device_bytes(self):
+        return self.inner.device_bytes() + int(self.bias_sp.numel()) * 4
+
+    def arrays(self):
+        d = {"bias_sp": self.bias_sp}
+        for k, v in self.inner.arrays().items():
+            d["inner_" + k] = v
+        return d
 
 
 class ChainedOp(LinearOp):

@@ -1,18 +1,40 @@
-"""Host math for split and factored keyed layers (the subset of the JAX
-package's ops/streaming.py that the materialized and Kronecker routes use).
+"""Host math for split, masked and strip-streamed keyed layers (the JAX
+package's ops/streaming.py on PyTorch).
 
 ``factor_left_identical`` / ``factor_right_perm`` recover the repeated-block
 structure keygen gives local keys, ``split_dense_inverse`` hides a
 dense-blocks inverse key behind a secret re-key, and
-``_key_blocks_identical`` is the exact periodicity test the Kronecker factorization
-relies on.  All of it is numpy/scipy on the host, with the same rng draws as
-the JAX package, so the same seed gives the same published factors.
-Strip streaming (masked_keyed_conv_streaming, keyed_conv_streaming) is not
-ported yet.
+``_key_blocks_identical`` is the exact periodicity test the Kronecker
+factorization and the strip extrapolation rely on.
+
+Strip streaming (VGG-224 scale).  A VGG-16 conv at 3x224x224 lowers to a
+Toeplitz matrix with ~1e9 nonzeros, but the keyed matrix Ŵ = A·W·A⁻¹ is
+periodic under the spatially repeating keys usable at this scale, so almost
+every tile of the layout-permuted Ŵ is a duplicate.  ``keyed_conv_streaming``
+never forms Ŵ: it walks the output in strips of layout row-blocks, computes
+Ŵ[strip] = A[strip,:]·W[needed]·A⁻¹ with strip-sized sparse products (the
+Toeplitz rows are generated on demand, toeplitz.toeplitz_conv2d_rows), packs
+each strip's tiles into a shared content-deduplicated Block-ELL store and
+discards the strip.  When the tile pattern of strip s equals that of strip
+s-k shifted by a constant column-block delta twice in a row, interior strips
+are extrapolated instead of computed; randomly chosen extrapolated strips
+are recomputed exactly and any mismatch recomputes them all.
+``masked_keyed_conv_streaming`` first moves fragmenting permutation factors
+into thin ELL links behind secret masks.
+
+All of it is numpy/scipy on the host with the same rng draws as the JAX
+package, so the same seed gives the same published factors and the same
+``tiles``, ``tile_ids``, ``col_blk`` and ``period``.  Ops are built on the
+CPU; KeyedModel moves them to the device.
 """
 
 import numpy as np
 import scipy.sparse
+
+from ..globals import vprint
+from ..toeplitz import toeplitz_conv2d_rows
+from .operators import (PermutedBlockSparseOp, StreamingBlockPacker,
+                        conv_layout_perm, conv_layout_blocks, _cdiv)
 
 
 def factor_right_perm(A, ps):
@@ -288,3 +310,674 @@ def _key_blocks_identical(A, p):
     ciw = (ci - b * p).reshape(nblk, k)
     cvw = cv.reshape(nblk, k)
     return bool((ciw[1:] == ciw[0]).all() and (cvw[1:] == cvw[0]).all())
+
+
+def _run_block_perm(N, p, C, rng, tile=128):
+    """Secret run-block permutation: a uniform permutation of *units* of
+    consecutive runs, applied identically in every channel.
+
+    A unit is the smallest group of runs whose layout-row count
+    (p·C per run) is a multiple of the Block-ELL tile edge — permuting
+    tile-ALIGNED units relocates whole tile rows/columns, so the packed
+    tile-content multiset is invariant (zero dedup cost); a misaligned
+    permutation would shift tile-window phases and fragment dedup.
+    Fewer than 2 units -> identity (the block-orthogonal mask E still hides
+    within-run structure).  Returns (P, Pinv) homogeneous CSR."""
+    from ..homogeneous import sparse_affine_to_linear
+    from ..blockpermute import permutation_vector_to_matrix
+    npix = N // C
+    nruns = npix // p
+    rows_per_run = p * C
+    unit = int(np.lcm(rows_per_run, tile)) // rows_per_run
+    units = nruns // unit
+    perm_units = np.arange(units)
+    if units >= 2:
+        perm_units = rng.permutation(units)
+    inv_units = np.empty(units, dtype=np.int64)
+    inv_units[perm_units] = np.arange(units)
+    run_src = np.arange(nruns)
+    head = (inv_units[:, None] * unit + np.arange(unit)[None, :]).reshape(-1)
+    run_src[:units * unit] = head        # trailing ragged runs stay in place
+    idx = np.arange(N).reshape(C, nruns, p)
+    v = idx[:, run_src, :].reshape(-1)   # (P @ x)[i] = x[v[i]]
+    P = permutation_vector_to_matrix(v).astype(np.float32).tocsr()
+    return (scipy.sparse.csr_matrix(sparse_affine_to_linear(P), dtype=np.float32),
+            scipy.sparse.csr_matrix(sparse_affine_to_linear(P.T), dtype=np.float32))
+
+
+def _block_orth_key(n, p, rng, mask_alpha=None):
+    """Secret block-local orthogonal mix: one (perm·givens) block repeated on
+    the p-sized run grid; inverse = exact transpose.  The Givens factor uses
+    _mask_rotations(p, mask_alpha) rotations (full balanced coverage, scaled
+    by the keygen alpha) so the mix is far from identity in every coordinate.
+    Returns (K, Kinv) homogeneous CSR."""
+    from ..keys import permutation_matrix, givens_orthogonal_matrix, repeat_block_diagonal
+    from ..homogeneous import sparse_affine_to_linear
+    Pm = permutation_matrix(p, rng)
+    S = givens_orthogonal_matrix(p, _mask_rotations(p, mask_alpha), rng)
+    E = scipy.sparse.csr_matrix(Pm @ S, dtype=np.float32)
+    IE = scipy.sparse.csr_matrix(repeat_block_diagonal(E, (n, n)), dtype=np.float32)
+    return (scipy.sparse.csr_matrix(sparse_affine_to_linear(IE), dtype=np.float32),
+            scipy.sparse.csr_matrix(sparse_affine_to_linear(IE.T), dtype=np.float32))
+
+
+def masked_keyed_conv_streaming(inshape, outshape, weight, bias, stride, A, Ainv,
+                                rng=None, mask_alpha=None, **stream_kwargs):
+    """Streamed keyed conv with *masked re-keying* for keys whose global
+    permutation factor would fragment tile dedup (hierarchical/flat global
+    permutations: the reference's stochastic VGG recipe,
+    reference test/test_keynet.py:116-130).
+
+    Folding a pixel-level permutation G into the Toeplitz emission keeps
+    strips local but destroys tile self-similarity (every relocated run gets
+    a distinct composition pattern -> ~zero dedup, unmaterializable at 224).
+    Instead the layer is published as the chain
+
+        F1 = A·π_o·(I⊗E_o)                         thin ELL (fill ~ alpha²)
+        M  = (I⊗E_o⁻¹)·π_o⁻¹ · W · π_i·(I⊗E_i)     Block-ELL via streaming
+        F2 = (I⊗E_i⁻¹)·π_i⁻¹ · A⁻¹                 thin ELL
+
+    with secret, DISCARDED masks: π run-block permutations (whole p-sized
+    runs, channel-uniform) and E block-local orthogonal mixes.  π permutes
+    whole layout row/col blocks, so M's tile-content multiset equals that of
+    the permutation-free orthogonal-keyed conv — full dedup — while the
+    fragmenting G_out/P' live only inside the THIN factors F1/F2 where
+    storage is per-entry.  F1·M·F2 == A·W·A⁻¹ exactly.
+
+    Security: each published factor is the corresponding key factor masked by
+    the secret (π, E) pair — a standard keyed-interface interposition (the
+    chain is a 2-extra-link keynet); the intermediate activations are keyed
+    by the discarded orthogonal+permutation masks.
+
+    Returns a LinearOp (ChainedOp when masking engaged).  Give ``Ainv``
+    already split of a dense-blocks inverse (split_dense_inverse) when
+    applicable — this function masks whatever permutation factors remain.
+    """
+    from .operators import block_diag_period, materialize, ChainedOp
+    from ..layer import is_identity_key
+    rng = rng or np.random.default_rng()
+    n_out = int(np.prod(outshape)) + 1
+    n_in = int(np.prod(inshape)) + 1
+    npix_out = outshape[1] * outshape[2]
+    npix_in = inshape[1] * inshape[2]
+    A = scipy.sparse.csr_matrix(A, dtype=np.float32)
+    Ainv = scipy.sparse.csr_matrix(Ainv, dtype=np.float32)
+
+    def _divs(npix):
+        return [d for d in range(2, min(npix, 8192) + 1) if npix % d == 0]
+
+    def _fragmenting_p(M, divs, side):
+        if stride != 1 or is_identity_key(M):
+            return None
+        p_bd = block_diag_period(M, divs)
+        if p_bd is not None and _key_blocks_identical(M, p_bd):
+            # exactly block-periodic at p_bd: the plain run layout
+            # extrapolates this key — masking would only lose that.
+            # (Catches e.g. relu-restricted local-permutation keys, whose
+            # permutation also factors at a finer p with non-identity g.)
+            return None
+        cands = [d for d in divs if p_bd is None or d < p_bd]
+        f = (factor_right_perm if side == "right" else factor_left_perm)(M, cands)
+        if f is not None and (f[1] != np.arange(M.shape[0] - 1)).any():
+            return f[0]
+        return None
+
+    p_o = _fragmenting_p(A, _divs(npix_out), "right")
+    p_i = _fragmenting_p(Ainv, _divs(npix_in), "left")
+    if p_o is None and p_i is None:
+        return keyed_conv_streaming(inshape, outshape, weight, bias, stride,
+                                    A, Ainv, rng=rng, **stream_kwargs)
+
+    ops = []
+    A_M, Ainv_M = A, Ainv
+    F1 = F2 = None
+    if p_o is not None:
+        Po, Poinv = _run_block_perm(n_out - 1, p_o, outshape[0], rng)
+        Ko, Koinv = _block_orth_key(n_out - 1, p_o, rng, mask_alpha)
+        F1 = (A @ Po) @ Ko                 # thin: A is sparse, Po perm, Ko block-sparse
+        A_M = Koinv @ Poinv                # (I⊗E_o⁻¹)·π_o⁻¹
+    if p_i is not None:
+        Pi, Piinv = _run_block_perm(n_in - 1, p_i, inshape[0], rng)
+        Ki, Kiinv = _block_orth_key(n_in - 1, p_i, rng, mask_alpha)
+        F2 = (Kiinv @ Piinv) @ Ainv        # thin
+        Ainv_M = Pi @ Ki                   # π_i·(I⊗E_i)
+    M = keyed_conv_streaming(inshape, outshape, weight, bias, stride,
+                             A_M, Ainv_M, rng=rng, **stream_kwargs)
+
+    def _thin(F):
+        """ELL when the max row fill respects the ELL gate (a single heavy row
+        would inflate EllOp to n_out x K_max slots); otherwise let the generic
+        format heuristic choose."""
+        F = scipy.sparse.csr_matrix(F)
+        K = int(np.diff(F.indptr).max()) if F.nnz else 1
+        from ..globals import GLOBAL
+        if K <= int(GLOBAL.get("ELL_MAX_K", 128)):
+            return materialize(F, format="ell")
+        return materialize(F)
+
+    if F2 is not None:
+        ops.append(_thin(F2))
+    ops.append(M)
+    if F1 is not None:
+        ops.append(_thin(F1))
+    op = ChainedOp(ops)
+    op.streaming_stats = dict(M.streaming_stats, masked_out=p_o, masked_in=p_i)
+    return op
+
+
+def factor_left_perm(M, ps):
+    """Factor M = P·B (P permutation, B block-diagonal): returns (p, g, B)
+    with ``M[r, :] == B[g[r], :]`` for core rows, or None.  This is the form
+    of an *inverse* key A⁻¹ = G⁻¹·B⁻¹ whose forward key was B'·G."""
+    f = factor_right_perm(scipy.sparse.csr_matrix(M).T, ps)
+    if f is None:
+        return None
+    p, g, Bt = f
+    return p, g, scipy.sparse.csr_matrix(Bt.T)
+
+
+def _dominant_split(A, max_residual=0.7):
+    """Per-row dominant entry of a key matrix: returns (c, v, L) with
+    ``A[r, :] == v[r]·e_{c[r]} + L[r, :]`` and L the residual, or None when a
+    row is empty/all-zero or the residual keeps more than ``max_residual`` of
+    the entries (then the split would not pay)."""
+    A = scipy.sparse.csr_matrix(A)
+    n = A.shape[0]
+    counts = np.diff(A.indptr)
+    if (counts == 0).any():
+        return None
+    rows = np.repeat(np.arange(n), counts)
+    order = np.lexsort((np.abs(A.data), rows))
+    sel = order[np.cumsum(counts) - 1]     # max-|value| entry per row
+    c = A.indices[sel].astype(np.int64)
+    v = A.data[sel].astype(np.float32)
+    if (v == 0).any():
+        return None
+    L = A.copy()
+    L.data[sel] = 0.0
+    L.eliminate_zeros()
+    if L.nnz > max_residual * A.nnz:
+        return None
+    return c, v, scipy.sparse.csr_matrix(L)
+
+
+def keyed_conv_streaming(inshape, outshape, weight, bias, stride, A, Ainv,
+                         tileshape=(128, 128), strip_rows_target=None,
+                         periodic_fastpath=True, rng=None,
+                         strip_nnz_cap=32_000_000):
+    """Build PermutedBlockSparseOp for Ŵ = A·toeplitz(weight,bias)·A⁻¹ without
+    materializing Ŵ.  A, A⁻¹: homogeneous scipy CSR keys ((N_out+1)², (N_in+1)²).
+    See the module docstring for the strip/periodicity scheme.
+
+    Keys with a *global permutation* factor (hierarchical or flat; e.g. the
+    reference's VGG-16 stochastic recipe, test/test_keynet.py:116-130) are not
+    block-diagonal, but factor exactly as A = B_out·G / A⁻¹ = G'⁻¹·B_in (see
+    factor_right_perm).  The permutations are then folded into the Toeplitz
+    emission itself — strip rows are *selected* at permuted positions and
+    emitted columns *relabeled* (index gathers, no spgemm) — so the strip
+    products only ever see the block-diagonal factors and stay local.  The
+    extrapolation fast path is disabled under folding (the permuted Toeplitz
+    is no longer translation-covariant), so every strip is computed exactly.
+    """
+    n_out = int(np.prod(outshape)) + 1
+    n_in = int(np.prod(inshape)) + 1
+    A = scipy.sparse.csr_matrix(A)
+    Ainv = scipy.sparse.csr_matrix(Ainv)
+    assert A.shape == (n_out, n_out) and Ainv.shape == (n_in, n_in)
+    rng = rng or np.random.default_rng(0)
+
+    TM, TN = tileshape
+    from ..layer import is_identity_key as _iik
+    _A_ident, _Ainv_ident = _iik(A), _iik(Ainv)
+
+    # Layout selection.  Default: matched 2-D pixel blocks (input block =
+    # output block scaled by stride), under which spatially-local keys tile
+    # densely.  But channel-memoryorder local keys are block-diagonal over
+    # 1-D raster RUNS of blocknumel pixels (keygen repeats the local block
+    # over the flattened pixel space); for those a run-aligned 1-D layout is
+    # the one that keeps tiles self-similar — detect the run period from the
+    # key matrices themselves.
+    run_p_out = run_p_in = None
+    fold_out_rows = None  # row map: row k of the streamed W'' = W row fold_out_rows[k]
+    fold_in_cols = None   # col map: W column c relabels to fold_in_cols[c]
+    folded = False
+    if periodic_fastpath and stride == 1:
+        def _divisors(npix):
+            return [d for d in range(2, min(npix, 8192) + 1) if npix % d == 0]
+        from .operators import block_diag_period
+        npix_out = outshape[1] * outshape[2]
+        npix_in = inshape[1] * inshape[2]
+        p_out = None if _A_ident else block_diag_period(A, _divisors(npix_out))
+        p_in = None if _Ainv_ident else block_diag_period(Ainv, _divisors(npix_in))
+        # permutation-factor fold: try divisors strictly below the plain
+        # block-diagonal period — a key that is merely block-diagonal at a
+        # coarse p (or not at all) because of a composed global permutation
+        # factors as B·G at the fine local blocksize, which both tightens
+        # strip locality and keeps tiles dense.  Purely block-diagonal keys
+        # fail every smaller divisor, so extrapolation is untouched for them.
+        if not _A_ident and not (p_out is not None
+                                 and _key_blocks_identical(A, p_out)):
+            cands = [d for d in _divisors(npix_out) if p_out is None or d < p_out]
+            f = factor_right_perm(A, cands)
+            if f is not None and (f[1] != np.arange(n_out - 1)).any():
+                p_out, g_out, A = f          # A ← B_out; Ŵ = B_out·(G·W·…)·…
+                ginv = np.argsort(g_out)     # row k of G·W = W row ginv[k]
+                fold_out_rows = np.concatenate([ginv, [n_out - 1]])
+                folded = True
+            elif f is not None:
+                p_out = f[0]  # identity factor: just a finer block-diag period
+        if not _Ainv_ident and not (p_in is not None
+                                    and _key_blocks_identical(Ainv, p_in)):
+            cands = [d for d in _divisors(npix_in) if p_in is None or d < p_in]
+            f = factor_left_perm(Ainv, cands)
+            if f is not None and (f[1] != np.arange(n_in - 1)).any():
+                p_in, g_in, Ainv = f         # Ainv ← B_in; W·P' relabels col k → g_in[k]
+                fold_in_cols = np.concatenate([g_in, [n_in - 1]]).astype(np.int32)
+                folded = True
+            elif f is not None:
+                p_in = f[0]
+        if folded:
+            vprint("[keyed_conv_streaming]: permutation key factored out "
+                   "(p_out=%s p_in=%s); folding into Toeplitz emission"
+                   % (p_out, p_in))
+        if (p_out or p_in) is not None:
+            run_p_out = p_out or (p_in if npix_out % (p_in or 1) == 0 else None)
+            run_p_in = p_in or (p_out if npix_in % (p_out or 1) == 0 else None)
+            if run_p_out is None or run_p_in is None \
+                    or npix_out % run_p_out or npix_in % run_p_in:
+                run_p_out = run_p_in = None
+
+    k_cands = (1, 2, 4, 8)
+    near_end_strips = 2
+    pad_run_in = 0
+    if run_p_out is not None:
+        from .operators import run_layout_perm
+        perm_out = run_layout_perm(outshape, run_p_out, homogeneous=True)
+        perm_in = run_layout_perm(inshape, run_p_in, homogeneous=True)
+        # tile-align the input runs: when a run's column count (p·C_in) is
+        # not a multiple of TN, every run starts at a different phase within
+        # its 128-wide tile and identical content dedups only at the
+        # lcm-period (measured: VGG conv1_1 with C_in=3 → 588-col runs →
+        # 36,815 unique tiles ≈ 1.2 GB bf16).  Padding each run to the next
+        # TN multiple with structurally-zero columns restores per-run tile
+        # self-similarity; the pad columns are never referenced, and the
+        # apply-side layout inserts matching zeros (layout kind 'runp').
+        rpc_in = run_p_in * inshape[0]
+        pad_run_in = (-rpc_in) % TN
+        rows_per_run = run_p_out * outshape[0]
+        g = np.gcd(rows_per_run, TM)
+        strip_rows = rows_per_run * (TM // g)
+        rb_per_strip = strip_rows // TM
+        # Deep layers can have one run = the whole image (blocknumel == H*W),
+        # making a single enormous strip: cap by nnz while keeping strips both
+        # row-block- AND pixel-aligned (layout rows iterate channel fastest, so
+        # one pixel = C_out rows) — extrapolation can still lock along the run
+        # since the Toeplitz pattern shifts uniformly with pixel position.
+        est_row_nnz = max(1, inshape[0] * weight.shape[2] * weight.shape[3])
+        cap_rb = max(1, strip_nnz_cap // (est_row_nnz * TM))
+        if rb_per_strip > cap_rb:
+            rb_period = rb_per_strip
+            rb_quantum = np.lcm(outshape[0], TM) // TM  # row-blocks per whole pixel
+            # prefer a strip count that divides the run period evenly: then
+            # run-period extrapolation (k = strips per period) can lock even
+            # though one run spans many strips (e.g. VGG conv4: 784 rb/run,
+            # cap 54 -> 28 rb/strip, k = 28)
+            divs = [d for d in range(rb_quantum, cap_rb + 1, rb_quantum)
+                    if rb_period % d == 0]
+            rb_per_strip = divs[-1] if divs \
+                else max(rb_quantum, (cap_rb // rb_quantum) * rb_quantum)
+        # bottom kernel overhang (+ homogeneous row) must never be extrapolated:
+        # those rows drop taps, so their tiles differ from interior strips.
+        # With a non-identity output key the A-side mixing spreads boundary row
+        # content across the ENTIRE last key period, so every strip overlapping
+        # the last run that contains a boundary pixel must be computed exactly.
+        hw = weight.shape[2] // 2
+        bnd_pix = _cdiv(hw, stride) * outshape[2]
+        npix_out_l = outshape[1] * outshape[2]
+        if _A_ident:
+            bnd_rows = bnd_pix * outshape[0] + 1
+        else:
+            safe_pix = ((npix_out_l - bnd_pix) // run_p_out) * run_p_out
+            bnd_rows = (npix_out_l - safe_pix) * outshape[0] + 1
+        near_end_strips = max(2, _cdiv(_cdiv(bnd_rows, TM), rb_per_strip) + 1)
+        # run-period lock candidate: the smallest k whose pixel advance is a
+        # whole number of key periods AND whole image pixel rows (otherwise the
+        # left/right edge-clipped Toeplitz pattern falls out of phase)
+        adv_pix = rb_per_strip * TM // outshape[0]  # pixels per strip (aligned)
+        L = int(np.lcm(run_p_out, outshape[2]))
+        k_run = L // int(np.gcd(adv_pix, L))
+        if 2 * k_run + near_end_strips < _cdiv(_cdiv(n_out, TM), rb_per_strip):
+            k_cands = tuple(sorted(set(k_cands) | {k_run, 2 * k_run}))
+        # soundness gate: a lock (k, delta) is accepted only when the keys are
+        # verified exactly run-periodic AND k strips advance a whole number of
+        # key periods — otherwise intra-run pattern coincidences (sparse local
+        # keys whose strips are mostly identity rows) could extrapolate wrongly
+        # with only probabilistic sample-verification as the net.
+        # folding breaks Toeplitz translation-covariance (strip s and s+k are
+        # no longer shifted copies), so extrapolation is disabled outright
+        keys_periodic = (not folded
+                         and (_A_ident or _key_blocks_identical(A, run_p_out))
+                         and (_Ainv_ident or _key_blocks_identical(Ainv, run_p_in)))
+        if keys_periodic:
+            k_cands = tuple(k for k in k_cands if (adv_pix * k) % run_p_out == 0)
+        else:
+            k_cands = ()
+        vprint("[keyed_conv_streaming]: run layout p_out=%d p_in=%d rb/strip=%d "
+               "k_cands=%s near_end=%d keys_periodic=%s"
+               % (run_p_out, run_p_in, rb_per_strip, k_cands, near_end_strips,
+                  keys_periodic))
+    else:
+        bh, bw = conv_layout_blocks(outshape)
+        perm_out = conv_layout_perm(outshape, homogeneous=True, blocks=(bh, bw))
+        perm_in = conv_layout_perm(inshape, homogeneous=True,
+                                   blocks=(bh * stride, bw * stride))
+        blockrow_rows = (outshape[2] // bw) * (bh * bw * outshape[0])
+        if blockrow_rows % TM == 0 and strip_rows_target is None:
+            rb_per_strip = blockrow_rows // TM
+        else:
+            est_row_nnz = max(1, inshape[0] * weight.shape[2] * weight.shape[3])
+            tgt = strip_rows_target or max(TM, min(400_000, 24_000_000 // est_row_nnz))
+            rb_per_strip = max(1, tgt // TM)
+
+    if pad_run_in:
+        C_in = inshape[0]
+        npix_in_l = inshape[1] * inshape[2]
+        nruns_in = npix_in_l // run_p_in
+        W_run = run_p_in * C_in + pad_run_in
+        n_in_eff = nruns_in * W_run + 1
+        cpos = np.empty(n_in, dtype=np.int32)
+        idx = np.arange(C_in * npix_in_l).reshape(C_in, nruns_in, run_p_in)
+        c, r, q = np.meshgrid(np.arange(C_in), np.arange(nruns_in),
+                              np.arange(run_p_in), indexing="ij")
+        cpos[idx] = (r * W_run + q * C_in + c).astype(np.int32)
+        cpos[n_in - 1] = n_in_eff - 1
+    else:
+        n_in_eff = n_in
+        cpos = np.empty(n_in, dtype=np.int32)
+        cpos[perm_in] = np.arange(n_in, dtype=np.int32)
+
+    packer = StreamingBlockPacker((n_out, n_in_eff), tileshape)
+    n_rb = _cdiv(n_out, TM)
+
+    from ..layer import is_identity_key
+    from .. import native as _native
+    A_ident, Ainv_ident = is_identity_key(A), is_identity_key(Ainv)
+    A32 = A.astype(np.float32)
+    Ainv32 = Ainv.astype(np.float32)
+    # Native single-pass emission writes into one reused warm buffer pool
+    # (first-touch page faults are the dominant conversion cost on the target
+    # VM); the emitted CSR is consumed within the same strip iteration, so the
+    # shift/W caches of the numpy fallback are unnecessary there.
+    use_pool = _native.toeplitz_fill is not None \
+        and n_in <= np.iinfo(np.int32).max
+    pool = {} if use_pool else None
+    emission_cache = None if use_pool else {}  # interior strips shift-reuse emission
+    wcache = {}  # last W slice, keyed by the needed-row set: consecutive
+    # strips inside one key block (e.g. whole-image blocknumel) share it
+
+    def _relabel(W):
+        """Apply the folded input permutation: W column k → fold_in_cols[k]."""
+        if fold_in_cols is None:
+            return W
+        W = scipy.sparse.csr_matrix((W.data, fold_in_cols[W.indices], W.indptr),
+                                    shape=W.shape)
+        W.sort_indices()
+        return W
+
+    def _W_rows(needed):
+        rows = needed if fold_out_rows is None else fold_out_rows[needed]
+        if use_pool:
+            return _relabel(toeplitz_conv2d_rows(inshape, weight, bias, stride,
+                                                 rows, pool=pool))
+        key = (needed[0], needed[-1], len(needed))
+        hit = wcache.get(key)
+        if hit is not None and np.array_equal(hit[0], needed):
+            return hit[1]
+        W = _relabel(toeplitz_conv2d_rows(inshape, weight, bias, stride, rows,
+                                          cache=emission_cache))
+        wcache.clear()
+        wcache[key] = (needed, W)
+        return W
+
+    # Dominant-entry key split (conversion speed): write each output-key row
+    # as  A[r,:] = v(r)·e_{c(r)} + L[r,:]  with (c, v) the largest-|value|
+    # entry.  The strip product then becomes a scaled Toeplitz-row emission
+    # plus a spgemm on only the residual L — for near-identity or
+    # permutation∘Givens keys this removes the dominant share of the generic
+    # spgemm work.  Enabled when the residual is at most ~70% of the key.
+    domL = None
+    if not A_ident:
+        f = _dominant_split(A32)
+        if f is not None:
+            domL = f  # (c, v, L)
+    dR = R32 = None
+    dR32 = _R_indptr = _R_rownnz = None
+    dr_pool = {}  # reusable native spgemm output buffers (warm across strips)
+    if not Ainv_ident:
+        d = Ainv32.diagonal()
+        if (d != 0).all():
+            R = (Ainv32 - scipy.sparse.diags(d, format="csr", dtype=np.float32)).tocsr()
+            R.eliminate_zeros()
+            if 2 * R.nnz <= Ainv32.nnz:
+                dR, R32 = d.astype(np.float32), R
+                dR32 = np.ascontiguousarray(dR, dtype=np.float32)
+                _R_indptr = np.ascontiguousarray(R32.indptr, dtype=np.int64)
+                _R_rownnz = np.diff(R32.indptr).astype(np.int64)
+        if dR is None:
+            # diag split does not pay (masked inner keys are permuted block
+            # mixes with near-zero diagonal): plain native S·Ainv product
+            # through the same scratch-accumulator kernel, dR32=None
+            R32 = Ainv32
+            _R_indptr = np.ascontiguousarray(R32.indptr, dtype=np.int64)
+            _R_rownnz = np.diff(R32.indptr).astype(np.int64)
+
+    def compute_strip(rb0, nrb):
+        r0 = rb0 * TM
+        r1 = min(n_out, (rb0 + nrb) * TM)
+        strip_rows = perm_out[r0:r1]
+        if A_ident:
+            # B may be identity with a nontrivial fold (a pure permutation key
+            # factors to A = I·G under the canonical block ordering), so the
+            # strip rows must still map through the folded row permutation
+            rows = strip_rows if fold_out_rows is None \
+                else fold_out_rows[strip_rows]
+            S = _relabel(toeplitz_conv2d_rows(inshape, weight, bias, stride,
+                                              rows, cache=emission_cache,
+                                              pool=pool))
+        elif domL is not None:
+            cdom, vdom, L32 = domL
+            # compute the residual product FIRST: its spgemm output owns its
+            # memory, so the second emission below can safely reuse the pool
+            # buffers the first one wrote
+            Ls = L32[strip_rows]
+            Smix = None
+            if Ls.nnz:
+                needed = np.unique(Ls.indices)
+                Smix = Ls[:, needed] @ _W_rows(needed)
+            W_s = _W_rows(cdom[strip_rows])
+            # v(r)·W[c(r)] row scaling into a fresh data array (W_s may alias
+            # pool buffers or live in wcache — never mutate either)
+            W_s = scipy.sparse.csr_matrix(
+                (W_s.data * np.repeat(vdom[strip_rows], np.diff(W_s.indptr)),
+                 W_s.indices, W_s.indptr), shape=W_s.shape)
+            S = W_s + Smix if Smix is not None else W_s
+        else:
+            A_strip = A32[strip_rows]
+            needed = np.unique(A_strip.indices)
+            S = A_strip[:, needed] @ _W_rows(needed)
+        if not Ainv_ident:
+            S = scipy.sparse.csr_matrix(S, copy=False)
+            if _native.spgemm_dr is not None \
+                    and S.indices.dtype == np.int32 \
+                    and R32.indices.dtype == np.int32 \
+                    and R32.data.dtype == np.float32:
+                # fused S·D' + S·R (dR given) or plain S·Ainv (dR None) in one
+                # native scratch-accumulator pass into pooled (warm) buffers —
+                # the scipy spgemm (+ add) was the dominant strip cost once
+                # packing went one-pass (~150 s of conv2_1's 183 s for the
+                # dR split; ~276 s for the plain masked-inner-key product;
+                # union support preserved like scipy's S+T, explicit zeros
+                # stay stored)
+                base = int(S.nnz) if dR is not None else 0
+                bound = base if not R32.nnz else base + int(
+                    _R_rownnz[S.indices].astype(np.int64).sum())
+                bound = max(bound, 1)
+                if dr_pool.get("cap", 0) < bound:
+                    dr_pool["ix"] = np.empty(bound, dtype=np.int32)
+                    dr_pool["dx"] = np.empty(bound, dtype=np.float32)
+                    dr_pool["cap"] = bound
+                n_rows_s = S.shape[0]
+                if dr_pool.get("ip_n", -1) < n_rows_s + 1:
+                    dr_pool["ip"] = np.empty(
+                        max(n_rows_s + 1, 1 + rb_per_strip * TM),
+                        dtype=np.int64)
+                    dr_pool["ip_n"] = len(dr_pool["ip"])
+                nnz_out = _native.spgemm_dr(
+                    np.ascontiguousarray(S.indptr, dtype=np.int64),
+                    S.indices, np.ascontiguousarray(S.data,
+                                                    dtype=np.float32),
+                    dR32 if dR is not None else None,
+                    _R_indptr, R32.indices, R32.data,
+                    dr_pool["ip"], dr_pool["ix"], dr_pool["dx"])
+                S = scipy.sparse.csr_matrix(
+                    (dr_pool["dx"][:nnz_out], dr_pool["ix"][:nnz_out],
+                     dr_pool["ip"][:n_rows_s + 1]),
+                    shape=(n_rows_s, Ainv32.shape[1]), copy=False)
+            elif dR is not None:
+                T = S @ R32 if R32.nnz else None
+                S = scipy.sparse.csr_matrix(S,
+                                            copy=(S.data.base is not None))
+                S.data *= dR[S.indices]     # S·D' column scaling
+                if T is not None:
+                    S = S + T
+            else:
+                S = S @ Ainv32
+        # consumed immediately; may alias pool buffers.  CSR-direct feed: the
+        # row offset and the layout relabel gather happen inside the native
+        # pack (no nnz-sized row/col temporaries per strip).
+        packer.add_strip_csr(scipy.sparse.csr_matrix(S), r0, cpos)
+
+    def pattern_of(rb0, nrb):
+        return [tuple(sorted(packer._rb_slots[rb0 + i])) for i in range(nrb)]
+
+    pinned_cb = packer.n_cb - 1  # homogeneous/bias column block never shifts
+    strips = list(range(0, n_rb, rb_per_strip))
+    n_strips = len(strips)
+    patterns = {}
+    period = delta = None
+    extrapolated = []
+    for i, rb0 in enumerate(strips):
+        nrb = min(rb_per_strip, n_rb - rb0)
+        near_end = i >= n_strips - near_end_strips  # bottom boundary + hom row
+        if (periodic_fastpath and period is not None and not near_end
+                and nrb == rb_per_strip and (i - period) >= 0
+                and strips[i - period] == rb0 - period * rb_per_strip):
+            src0 = strips[i - period]
+            for j in range(nrb):
+                packer._rb_slots[rb0 + j] = [
+                    (cb if cb == pinned_cb else cb + delta, tid)
+                    for cb, tid in packer._rb_slots[src0 + j]]
+                packer._rb_slot_entries[rb0 + j] = \
+                    list(packer._rb_slot_entries[src0 + j])
+            extrapolated.append((rb0, nrb))
+            continue
+
+        compute_strip(rb0, nrb)
+        patterns[i] = pattern_of(rb0, nrb)
+        if periodic_fastpath and period is None:
+            for k in k_cands:
+                if i - 2 * k >= 0 and (i - k) in patterns and (i - 2 * k) in patterns:
+                    d1 = _pattern_shift(patterns[i - 2 * k], patterns[i - k], pinned_cb)
+                    d2 = _pattern_shift(patterns[i - k], patterns[i], pinned_cb)
+                    if d1 is not None and d1 == d2:
+                        period, delta = k, d2
+                        break
+
+    # verify randomly chosen extrapolated strips exactly; mismatch -> recompute all
+    if extrapolated:
+        ok = True
+        verified = set()
+        for vi in rng.choice(len(extrapolated), size=min(2, len(extrapolated)),
+                             replace=False):
+            vrb0, vn = extrapolated[int(vi)]
+            verified.add(vrb0)
+            saved = [sorted(packer._rb_slots[vrb0 + j]) for j in range(vn)]
+            for j in range(vn):
+                packer._rb_slots[vrb0 + j] = []
+                packer._rb_slot_entries[vrb0 + j] = []
+            compute_strip(vrb0, vn)
+            ok = ok and all(sorted(packer._rb_slots[vrb0 + j]) == saved[j]
+                            for j in range(vn))
+        if not ok:
+            vprint("[keyed_conv_streaming]: periodicity verification FAILED; "
+                   "recomputing %d extrapolated strips exactly" % len(extrapolated))
+            for rb0e, ne in extrapolated:
+                if rb0e in verified:
+                    continue
+                for j in range(ne):
+                    packer._rb_slots[rb0e + j] = []
+                    packer._rb_slot_entries[rb0e + j] = []
+                compute_strip(rb0e, ne)
+        packer.nnz = _total_nnz(packer)
+
+    vprint("[keyed_conv_streaming]: %s nnz=%d unique_tiles=%d extrapolated=%d/%d"
+           % ((n_out, n_in), packer.nnz, packer.n_unique(), len(extrapolated), n_strips))
+    inner = packer.finalize()
+    rpos = np.empty(n_out, dtype=np.int64)
+    rpos[perm_out] = np.arange(n_out)
+    # structured layout descriptors: apply-time permutations become
+    # reshape/transpose instead of 1-D index gathers
+    if run_p_out is not None:
+        lay_out = ("run", outshape[0], outshape[1] * outshape[2], run_p_out)
+        lay_in = ("run", inshape[0], inshape[1] * inshape[2], run_p_in) \
+            if not pad_run_in else \
+            ("runp", inshape[0], inshape[1] * inshape[2], run_p_in,
+             run_p_in * inshape[0] + pad_run_in)
+    else:
+        lay_out = ("blk", outshape[0], outshape[1], outshape[2], bh, bw)
+        lay_in = ("blk", inshape[0], inshape[1], inshape[2], bh * stride, bw * stride)
+    perm_in_arr = perm_in
+    if pad_run_in:
+        # gather-fallback mapping for the padded layout (pad slots point at
+        # the hom coordinate; never used — 'runp' always takes the structured
+        # layout path, which inserts true zeros)
+        perm_in_arr = np.full(n_in_eff, n_in - 1, dtype=np.int64)
+        perm_in_arr[cpos] = np.arange(n_in, dtype=np.int64)
+    op = PermutedBlockSparseOp(inner, perm_in_arr, rpos, (n_out, n_in),
+                               layout_in=lay_in, layout_out=lay_out)
+    op.streaming_stats = {"strips": n_strips, "extrapolated": len(extrapolated),
+                          "period": period, "unique_tiles": packer.n_unique(),
+                          "folded": folded, "run_layout": run_p_out is not None}
+    return op
+
+
+def _pattern_shift(prev_pat, pat, pinned_cb):
+    """Constant column-block shift delta such that pat == prev_pat shifted
+    (slots at pinned_cb must match exactly), or None."""
+    if len(prev_pat) != len(pat):
+        return None
+    delta = None
+    for p, q in zip(prev_pat, pat):
+        if len(p) != len(q):
+            return None
+        for (cb0, t0), (cb1, t1) in zip(p, q):
+            if t0 != t1:
+                return None
+            if cb0 == pinned_cb or cb1 == pinned_cb:
+                if cb0 != cb1:
+                    return None
+                continue
+            d = cb1 - cb0
+            if delta is None:
+                delta = d
+            elif d != delta:
+                return None
+    return delta if delta is not None else 0
+
+
+def _total_nnz(packer):
+    """Stored-entry count summed over per-slot counts recorded at add_strip
+    time (extrapolated strips copy their source strip's counts), so the
+    reported nnz is identical whether or not the fast path engaged and
+    explicit-zero stored entries are preserved in the accounting."""
+    return int(sum(sum(e) for e in packer._rb_slot_entries))

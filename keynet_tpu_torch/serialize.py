@@ -4,7 +4,8 @@ A bundle is one .npz: every device operator's arrays plus a JSON manifest
 (format, shapes, layer order, relu plan) and, with include_keys, the private
 keys as CSR arrays.  ``load_keynet`` reads the same manifest and op kinds as
 keynet_tpu/serialize.py:89-145, :193-232, so a bundle converted by the JAX
-package serves in the port.  Saving is not ported yet.
+package serves in the port, periodic Block-ELL cores (their ``period``) and
+channel-broadcast pools included.  Saving is not ported yet.
 """
 
 import json
@@ -17,7 +18,7 @@ import torch
 from .layer import KeyedLayer
 from .ops.operators import (DenseOp, BlockSparseOp, EllOp, PermutedBlockSparseOp,
                             ChainedOp, RepeatedBlockDiagOp, KroneckerOp, TapSumOp,
-                            DirectConvOp)
+                            ChannelBroadcastOp, DirectConvOp)
 
 
 def _tiles(arrs, meta):
@@ -58,6 +59,11 @@ def _op_restore(kind, arrs, meta):
                            perm_in=arrs.get("perm_in"), perm_out=arrs.get("perm_out"))
     if kind == "tapsum":
         return TapSumOp(arrs["K"], arrs["S"], arrs["bias"], nnz=meta["nnz"])
+    if kind == "chanbcast":
+        sub = {k[len("in_"):]: v for k, v in arrs.items() if k.startswith("in_")}
+        inner = _op_restore(meta["inner_kind"], sub, meta["inner_meta"])
+        return ChannelBroadcastOp(inner, int(meta["C"]), arrs["bias_sp"],
+                                  nnz=meta["nnz"])
     if kind == "chain":
         ops = []
         for i, part in enumerate(meta["parts"]):

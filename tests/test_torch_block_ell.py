@@ -186,3 +186,31 @@ def test_kernel_skips_zero_slots():
     cols[:, 1:] = torch.remainder(cols[:, 1:], 6)
     y = block_ell.block_ell_matmul_xresd(x, tiles, ids, cols, 13 * TM, depth=4)
     assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.cuda
+def test_periodic_kernel_matches_plain_on_card():
+    """Needs the card: the periodic CUDA kernel against its plain version
+    in f32 and bf16, with s > 0, P not a multiple of anything, B = 5, id-0
+    slots and an all-zero period row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
+    rng = np.random.default_rng(1)
+    s, P, R, KB, n_uniq, n_cb, B = 2, 5, 7, 3, 9, 11, 5
+    n_rb = s + P * R + 1
+    tiles = rng.standard_normal((n_uniq, TM, TN)).astype(np.float32)
+    tiles[0] = 0.0
+    ids = rng.integers(0, n_uniq, size=(n_rb, KB)).astype(np.int32)
+    ids[s + 1] = 0                          # an all-zero period row
+    for j in range(1, R):
+        ids[s + j * P:s + (j + 1) * P] = ids[s:s + P]
+    cols = rng.integers(0, n_cb, size=(n_rb, KB)).astype(np.int32)
+    x = torch.from_numpy(rng.standard_normal((B, n_cb * TN)).astype(np.float32)).cuda()
+    ids, cols = torch.from_numpy(ids).cuda(), torch.from_numpy(cols).cuda()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+        t = torch.from_numpy(tiles).cuda().to(dtype)
+        ref = block_ell.periodic_block_ell_plain(x, t, ids, cols, s, P, R)
+        y = block_ell.periodic_block_ell_matvec(x, t, ids, cols, s, P, R)
+        torch.cuda.synchronize()
+        assert float((y - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+        assert bool((y[:, TM:2 * TM] == 0).all())

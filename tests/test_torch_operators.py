@@ -233,8 +233,11 @@ def test_ops_move_between_devices():
     rng = np.random.default_rng(0)
     F = rng.standard_normal((8, 8)).astype(np.float32)
     A = _sparse((65, 65), density=0.1)
+    pool = ot.ChannelBroadcastOp(ot.materialize(_sparse((16, 32), density=0.2),
+                                                format="block", tileshape=(16, 16)),
+                                 2, np.ones(16, np.float32))
     op = ot.ChainedOp([ot.RepeatedBlockDiagOp(F, np.zeros(64, np.float32), 64),
-                       ot.materialize(A, format="block", tileshape=(16, 16))])
+                       ot.materialize(A, format="block", tileshape=(16, 16)), pool])
     op.to("meta")
     assert op.device.type == "meta"
     assert all(t.device.type == "meta" for o in op.ops for t in o.arrays().values())

@@ -111,12 +111,17 @@ def test_narrow_decrypt_roundtrip(narrow):
     _close(x, back)
 
 
-@pytest.mark.parametrize("which", ["narrow", "lenet_bf16"])
-def test_load_jax_bundle(which, narrow, tmp_path):
+@pytest.mark.parametrize("which", ["narrow", "lenet_bf16", "vgg_narrow"])
+def test_load_jax_bundle(which, narrow, vgg_narrow, tmp_path):
     """A bundle that keynet_tpu converted and saved serves in the port with
-    the JAX package's forward."""
+    the JAX package's forward (periodic Block-ELL cores and a
+    channel-broadcast pool in the VGG-shaped one)."""
     p = str(tmp_path / "k.npz")
-    if which == "narrow":
+    if which == "vgg_narrow":
+        sj, knj, x = vgg_narrow["sj"], vgg_narrow["knj"], vgg_narrow["x"]
+        tol = TOL
+        kj.serialize.save_keynet(p, knj, sensor=sj, include_keys=True)
+    elif which == "narrow":
         sj, knj, x = narrow["sj"], narrow["knj"], narrow["x"]
         tol = TOL
         kj.serialize.save_keynet(p, knj, sensor=sj, include_keys=True)
@@ -132,6 +137,10 @@ def test_load_jax_bundle(which, narrow, tmp_path):
         kj.serialize.save_keynet(p, knj, sensor=sj, include_keys=True)
     st, knt = kt.load_keynet(p, device="cpu")
     assert list(knt.layers()) == list(knj.layers())
+    if which == "vgg_narrow":
+        assert type(knt.layers()["pool2"].op()).__name__ == "ChannelBroadcastOp"
+        assert knt.layers()["conv1"].op().inner.period \
+            == knj.layers()["conv1"].op().inner.period
     _close(_keyed(sj, knj, x), _keyed(st, knt, x), tol=tol)
 
 
@@ -172,14 +181,15 @@ def test_batchnorm_keyed_relu_path():
     _close(nt.forward(x), y)
 
 
-@pytest.mark.parametrize("name", ["LeNet", "LeNet_AvgPool", "AllConvNet_bn"])
+@pytest.mark.parametrize("name", ["LeNet", "LeNet_AvgPool", "AllConvNet_bn", "VGG16"])
 def test_source_forward_matches_jax(name):
     if name == "AllConvNet_bn":
         nj, nt = (kj.models.AllConvNet(batchnorm=True, seed=2),
                   kt.models.AllConvNet(batchnorm=True, seed=2))
     else:
         nj, nt = getattr(kj.models, name)(seed=2), getattr(kt.models, name)(seed=2)
-    x = np.random.default_rng(5).standard_normal((2, *nj.inshape)).astype(np.float32)
+    B = 1 if name == "VGG16" else 2       # VGG16: one 3x224x224 image
+    x = np.random.default_rng(5).standard_normal((B, *nj.inshape)).astype(np.float32)
     _close(nj.forward(x), nt.forward(x))
 
 
@@ -204,22 +214,64 @@ def test_allconvnet_full_width_parity():
     _close(nt.forward(x), y)
 
 
-@pytest.mark.parametrize("route", ["channel_broadcast_pool", "strip_streaming"])
-def test_unported_routes_raise(route):
-    """Routes the port does not take yet raise instead of converting along a
-    route keynet_tpu would not take (ROADMAP Queue 3)."""
-    G = kt.globals.GLOBAL
-    keys = {"channel_broadcast_pool": {"POOL_FACTOR_MIN_N": 100},
-            "strip_streaming": {"STREAM_NNZ": 1000, "KRON_FACTORED": "never"}}[route]
-    saved = {k: G.get(k) for k in keys}
-    G.update(keys)
-    try:
-        with pytest.raises(NotImplementedError):
-            kt.PermutationKeynet((1, 28, 28), kt.models.LeNet_AvgPool(seed=0), seed=0,
-                                 device="cpu")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                G.pop(k, None)
-            else:
-                G[k] = v
+class _VggGlobals(_SmallGlobals):
+    """Strip streaming for every conv (STREAM_NNZ), no Kronecker chains and
+    channel-broadcast pools at any size, in both packages."""
+    KEYS = {"STREAM_NNZ": 1000, "KRON_FACTORED": "never", "POOL_FACTOR_MIN_N": 1}
+
+
+def _vgg_narrow(m):
+    return m.Model([m.Conv2d("conv1", 3, 8, 3), m.ReLU("relu1"),
+                    m.Conv2d("conv2", 8, 8, 3), m.ReLU("relu2"),
+                    m.AvgPool2d("pool2", 3, 2),
+                    m.Conv2d("conv3", 8, 8, 3), m.ReLU("relu3"),
+                    m.Linear("fc4", 8 * 28 * 28, 10)], inshape=(3, 56, 56), seed=5)
+
+
+ORTH = dict(global_geometric="identity", local_geometric="givens_orthogonal",
+            alpha=2.0, blocksize=14, local_photometric="uniform_random_affine",
+            beta=1.0, gamma=1.0, memoryorder="channel", seed=0)
+
+
+@pytest.fixture(scope="module")
+def vgg_narrow():
+    """The Givens-orthogonal VGG recipe on a narrow VGG-shaped net at
+    3x56x56: its convs stream into periodic Block-ELL cores and its pool
+    takes the channel-broadcast route."""
+    with _VggGlobals():
+        nj, nt = _vgg_narrow(kj.models), _vgg_narrow(kt.models)
+        sj, knj = kj.Keynet((3, 56, 56), nj, **ORTH)
+        st, knt = kt.Keynet((3, 56, 56), nt, device="cpu", **ORTH)
+    x = np.random.default_rng(3).standard_normal((3, 3, 56, 56)).astype(np.float32)
+    return dict(nj=nj, nt=nt, sj=sj, st=st, knj=knj, knt=knt, x=x)
+
+
+def test_vgg_narrow_routes_and_arrays(vgg_narrow):
+    from keynet_tpu_torch.ops.operators import PermutedBlockSparseOp
+    lj, lt = vgg_narrow["knj"].layers(), vgg_narrow["knt"].layers()
+    assert list(lj) == list(lt)
+    routes = {k: _route(l.op()) for k, l in lt.items() if l != "relu"}
+    assert routes == {k: _route(l.op()) for k, l in lj.items() if l != "relu"}
+    assert routes["pool2"] == ["ChannelBroadcastOp"]
+    assert all(routes[c] == ["PermutedBlockSparseOp"] for c in ("conv1", "conv2", "conv3"))
+    assert vgg_narrow["knt"].num_parameters() == vgg_narrow["knj"].num_parameters()
+    for k, l in lt.items():
+        if l == "relu":
+            continue
+        assert l.nnz() == lj[k].nnz(), k
+        aj, at = lj[k].op().arrays(), l.op().arrays()
+        assert sorted(aj) == sorted(at), k
+        for a in aj:
+            assert np.array_equal(np.asarray(aj[a]), at[a].numpy()), (k, a)
+        if isinstance(l.op(), PermutedBlockSparseOp):
+            assert l.op().inner.period == lj[k].op().inner.period, k
+    B = vgg_narrow["x"].shape[0]
+    periodic = [lt[c].op().inner.period for c in ("conv1", "conv2", "conv3")]
+    assert any(p is not None and B <= (p[2] - 1) * 128 // p[2] for p in periodic)
+
+
+def test_vgg_narrow_forward_matches_jax_and_source(vgg_narrow):
+    x = vgg_narrow["x"]
+    y = _keyed(vgg_narrow["st"], vgg_narrow["knt"], x)
+    _close(_keyed(vgg_narrow["sj"], vgg_narrow["knj"], x), y)
+    _close(vgg_narrow["nt"].forward(x), y)
