@@ -6,17 +6,21 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
   1. build     the native packer (setup.py build_ext; a failed build raises:
-               the VGG conversion needs it) and both CUDA sources
-               (csrc/block_ell.cu and csrc/periodic_block_ell.cu, one nvcc
-               each for sm_90a, started together) from this checkout;
-  2. parity    every slot-walk entry against its plain PyTorch version on
+               the VGG conversion needs it) and the four CUDA sources
+               (csrc/block_ell.cu, block_ell_xres.cu, block_ell_grid.cu and
+               periodic_block_ell.cu, one nvcc each for sm_90a, started
+               together) from this checkout;
+  2. parity    every slot-walk entry (block_ell_matmul, xres, xres2, xresd at
+               depths 3 and 4, grid) against its plain PyTorch version on
                seeded random Block-ELL operands (f32 and bf16 tiles, B in
                {1, 5, 130}, KB not a multiple of the depth, n_rb not a
-               multiple of 8, an all-zero row, id-0 slots, xresd at depths
-               3 and 4), and the periodic kernel against its plain version
-               (f32 and bf16, s = 0 and s > 0, P below 8 and P not a
-               multiple of the 64-row tile, R in {1, 7, 31}, B in
-               {1, 5, 32}, TM = 256, id-0 slots, an all-zero period row);
+               multiple of 8, an all-zero row, id-0 slots, consecutive
+               repeated ids, a, a, 0, a runs, rows that start on the last id
+               of the row before, TM = 256, TN = 256), shape included, and
+               the periodic kernel against its plain version (f32 and bf16,
+               s = 0 and s > 0, P below 8 and P not a multiple of the 64-row
+               tile, R in {1, 7, 31}, B in {1, 5, 32}, TM = 256, id-0 slots,
+               an all-zero period row);
   3. main path, slice 1 (launch counts set to 0 just before, read just
                after): StochasticKeynet AllConvNet (3x32x32, alpha=2,
                blocksize 8, seed 0, AllConvNet(seed=1)) at B=64 and B=1024,
@@ -24,7 +28,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
                PermutationKeynet LeNet_AvgPool at B=64; each keyed forward
                is held against the source model on the card (IEEE f32)
                within 1e-5*max(1, scale); every entry that the driven
-               Block-ELL cores route to must have launched;
+               Block-ELL cores route to must have launched, xres and grid
+               never (no operator routes to them);
   4. main path, slice 2 (counts set to 0 just before, read just after):
                the Givens-orthogonal VGG-16 at 3x224x224 (Keynet with
                local_geometric='givens_orthogonal', alpha=2, blocksize 14,
@@ -34,15 +39,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
                device bytes; keyed vs source at B=1, 8 and 32 within
                1e-5*max(1, scale); the periodic kernel must have launched
                once per periodic core per forward; per-link ms at each B;
-  5. kernels   each slot-walk entry at the shape its main path gave it (the
-               depth-1 entry, which no core routes to on this card, at the
-               shape the JAX package routes it: AllConvNet conv1 at B=1024),
-               plus the depth-2 entry at the full-width conv1 core, and the
-               periodic kernel at the VGG core with the most period slots at
-               B=1 and B=32: kernel, plain version and library times (BSR
-               torch.sparse.mm; torch.bmm over pre-gathered operands for the
-               periodic kernel, gathers not timed) with CUDA events, and the
-               bound from the card's data-sheet rates.
+               then one torch.profiler trace of the forward at B=1
+               (keynet_tpu_torch.profiling.trace) and the device's busy and
+               idle share of the traced window;
+  5. main path, slice 3 (counts set to 0 just before, read just after):
+               the kernel bench, keynet_tpu_torch.bench_kernels, with fewer
+               trials, in its three modes (kernel bench, depth sweep, depth
+               bench at the 784 x 40 operand of 27,000 tiles); every row is
+               held against the plain version; every entry it drives must
+               have launched, xres and grid among them;
+  6. kernels   one row per Pallas function: each slot-walk entry at the
+               shape its main path gave it (the depth-1 entry, which no core
+               routes to on this card, at the shape the JAX package routes
+               it: AllConvNet conv1 at B=1024; xres and grid at the depth
+               bench's operand at B=8), plus xres, grid and xresd at the
+               full-width AllConvNet conv1 core at B=64 and the depth-2
+               entry at that core, and the periodic kernel at the VGG core
+               with the most period slots at B=1 and B=32: kernel, plain
+               version and library times (BSR torch.sparse.mm; torch.bmm
+               over pre-gathered operands for the periodic kernel, gathers
+               not timed) with CUDA events, and the bound from the card's
+               data-sheet rates.
 
 The last lines are the card's name and power limit, a JSON line of kernels,
 and {"ok": true, "device": {...}}.  Nothing here imports JAX or keynet_tpu.
@@ -57,24 +74,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_F32, TOL_BF16 = 1e-5, 1e-4
-
-# Data-sheet rates (dense, no sparsity) at the full power limit:
-# f32 outside the tensor cores, bf16 in them, device memory bandwidth.
-PEAKS = {"H100 SXM": dict(f32=67e12, bf16=989e12, bw=3.35e12),
-         "H100 PCIe": dict(f32=51e12, bf16=756e12, bw=2.0e12),
-         "H100 NVL": dict(f32=60e12, bf16=835e12, bw=3.9e12),
-         "H200": dict(f32=67e12, bf16=989e12, bw=4.8e12)}
-
-
-def card_peaks(name):
-    if "H200" in name:
-        return "H200", PEAKS["H200"]
-    if "PCIe" in name:
-        return "H100 PCIe", PEAKS["H100 PCIe"]
-    if "NVL" in name:
-        return "H100 NVL", PEAKS["H100 NVL"]
-    return "H100 SXM", PEAKS["H100 SXM"]
-
 
 def log(*a):
     print(*a, flush=True)
@@ -123,10 +122,8 @@ def phase_build():
     log("[build] nvcc %s (sm_90a, in parallel): %.1f s"
         % (" ".join(os.path.basename(v) for v in block_ell.SOURCES.values()),
            time.perf_counter() - t))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip()
-    return kt, block_ell, smi
+    from keynet_tpu_torch import bench_kernels
+    return kt, block_ell, bench_kernels.card()
 
 
 # --------------------------------------------------------------- phase 2
@@ -144,29 +141,53 @@ def random_block_ell(rng, B, n_rb, KB, n_uniq, n_cb, TM, TN, dtype):
             torch.from_numpy(ids).to(dev), torch.from_numpy(cols).to(dev))
 
 
+def with_repeats(ids):
+    """tile_ids with consecutive repeats: every third row runs a, a, 0, a
+    (as far as KB allows) and every row starts on the last id of the row
+    before; the all-zero middle row stays zero."""
+    ids = ids.clone()
+    n_rb, KB = ids.shape
+    if KB > 1:
+        ids[::3, 1] = ids[::3, 0]
+    if KB > 3:
+        ids[::3, 2] = 0
+        ids[::3, 3] = ids[::3, 0]
+    ids[1:, 0] = ids[:-1, -1].clone()
+    ids[n_rb // 2] = 0
+    return ids
+
+
 def phase_parity(block_ell):
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
     entries = [("block_ell_matmul", block_ell.block_ell_matmul, {}),
+               ("block_ell_matmul_xres", block_ell.block_ell_matmul_xres, {}),
                ("block_ell_matmul_xres2", block_ell.block_ell_matmul_xres2, {}),
                ("block_ell_matmul_xresd", block_ell.block_ell_matmul_xresd, {"depth": 3}),
-               ("block_ell_matmul_xresd", block_ell.block_ell_matmul_xresd, {"depth": 4})]
+               ("block_ell_matmul_xresd", block_ell.block_ell_matmul_xresd, {"depth": 4}),
+               ("block_ell_matmul_grid", block_ell.block_ell_matmul_grid, {})]
     # (B, n_rb, KB, n_uniq, n_cb, TM, TN, extra output columns)
     cases = [(1, 11, 7, 9, 6, 128, 128, 0), (5, 13, 9, 12, 7, 128, 128, 128),
-             (130, 5, 3, 6, 4, 256, 128, 0), (130, 9, 16, 20, 10, 128, 256, 0)]
+             (130, 5, 3, 6, 4, 256, 128, 0), (130, 9, 16, 20, 10, 128, 256, 0),
+             (5, 6, 5, 4, 3, 256, 256, 0)]
     worst = {}
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         for case in cases:
             B, n_rb, KB, n_uniq, n_cb, TM, TN, extra = case
             x, tiles, ids, cols = random_block_ell(rng, B, n_rb, KB, n_uniq, n_cb,
                                                    TM, TN, dtype)
+            ids = with_repeats(ids)
             n_out = n_rb * TM + extra
             ref = block_ell.block_ell_plain(x, tiles, ids, cols, n_out)
             for name, fn, kw in entries:
                 y = fn(x, tiles, ids, cols, n_out, **kw)
                 torch.cuda.synchronize()
-                err = float((y - ref).abs().max())
+                width = block_ell.out_width(n_rb, TM, n_out, grid=name.endswith("_grid"))
+                if tuple(y.shape) != (B, width):
+                    raise AssertionError("%s %s: shape %s, want %s"
+                                         % (name, case, tuple(y.shape), (B, width)))
+                err = float((y - ref[:, :width]).abs().max())
                 scale = float(ref.abs().max())
                 check(err, scale, tol, "%s%s %s %s" % (name, kw, str(dtype), case))
                 key = (name, kw.get("depth"), str(dtype))
@@ -252,6 +273,13 @@ def entries_of(block_ell, core, B):
     return {block_ell.route(KB).__name__}
 
 
+def never_routed(launches, where):
+    """No operator routes to the xres and grid entries (as in keynet_tpu)."""
+    for name in ("block_ell_matmul_xres", "block_ell_matmul_grid"):
+        if launches[name]:
+            raise AssertionError("%s launched %d times on %s" % (name, launches[name], where))
+
+
 def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5):
     """Encrypt a seeded batch, hold the keyed forward against the source
     forward, and time the keyed forward; returns (cipher batch, keyed
@@ -332,6 +360,7 @@ def phase_main_allconv(kt, block_ell):
     for name in routed:
         if launches[name] <= 0:
             raise AssertionError("%s was not launched on the main path" % name)
+    never_routed(launches, "the slice-1 path")
     for B in (64, 1024):
         layer_breakdown("AllConvNet", knet, xcs[B])
     return {"allconv": (knet, xcs), "narrow": (nk, xn)}, launches
@@ -394,9 +423,34 @@ def phase_main_vgg(kt, block_ell):
     for name in routed:
         if launches[name] <= 0:
             raise AssertionError("%s was not launched on the VGG path" % name)
+    never_routed(launches, "the VGG path")
     for B in (1, 8, 32):
         layer_breakdown("VGG16 orth", knet, xcs[B])
+    trace_forward(kt, knet, xcs[1], "vgg_orth_forward_B1")
     return {"vgg": (knet, xcs, cores)}, launches
+
+
+def trace_forward(kt, knet, xc, name):
+    """One torch.profiler trace of a warm keyed forward (written to
+    build/traces/<name>.json): the device's busy and idle share of the traced
+    window and the kernels that took most device time."""
+    import torch
+    knet.forward(xc)
+    torch.cuda.synchronize()
+    with kt.profiling.trace(name, trace_dir=os.path.join(ROOT, "build", "traces")) as prof:
+        knet.forward(xc)
+        torch.cuda.synchronize()
+    share = kt.profiling.device_busy(prof, name)
+    by_name = {}
+    for e in kt.profiling.device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("[trace] %s B=%d: %s" % (name, xc.shape[0], json.dumps(dict(
+        share, top_device_ms=[[n[:80], ms] for n, ms in top]))))
+    if not share["device_events"]:
+        log("[trace] the profiler recorded no device event: busy and idle share "
+            "not measured")
+    return share
 
 
 def layer_breakdown(label, knet, xc):
@@ -454,14 +508,14 @@ def core_input(knet, xc, layer="conv1"):
     return inner, F.pad(xl, (0, n_cb * TN - xl.shape[1])).contiguous()
 
 
-def bsr_library_ms(inner, x):
+def bsr_library_ms(tiles, tile_ids, col_blk, x):
     """torch.sparse.mm on a BSR tensor of the same expanded tiles (the
     yardstick; the port never calls it)."""
     import torch
-    ids = inner.tile_ids.long()
-    cols = inner.col_blk.long()
+    ids = tile_ids.long()
+    cols = col_blk.long()
     n_rb, KB = ids.shape
-    TM, TN = inner.tileshape
+    TM = tiles.shape[1]
     nz = ids > 0
     order = torch.argsort(torch.where(nz, cols, cols.max() + 1), dim=1)
     ids_s = torch.gather(ids, 1, order)
@@ -469,7 +523,7 @@ def bsr_library_ms(inner, x):
     nz_s = ids_s > 0
     crow = torch.zeros(n_rb + 1, dtype=torch.int64, device=ids.device)
     crow[1:] = torch.cumsum(nz_s.sum(1), 0)
-    W = torch.sparse_bsr_tensor(crow, cols_s[nz_s], inner.tiles[ids_s[nz_s]].float(),
+    W = torch.sparse_bsr_tensor(crow, cols_s[nz_s], tiles[ids_s[nz_s]].float(),
                                 size=(n_rb * TM, x.shape[1]))
     xT = x.T.contiguous()
     y = torch.sparse.mm(W, xT).T
@@ -477,93 +531,106 @@ def bsr_library_ms(inner, x):
     return ms, y
 
 
-def bound(inner, B, peaks):
+def measure_operand(block_ell, bk, fn, kw, tiles, ids, cols, x, where, peaks):
+    """One entry on one Block-ELL operand: checked against the plain version
+    (shape and values), then timed with the plain version and the BSR
+    yardstick beside it."""
     import torch
-    ids = inner.tile_ids
-    n_rb, KB = ids.shape
-    TM, TN = inner.tileshape
-    it = inner.tiles.element_size()
-    slots = int((ids > 0).sum())
-    uniq = int(torch.unique(ids[ids > 0]).numel())
-    n_cols = -(-inner.shape[1] // TN) * TN
-    flops = 2.0 * TM * TN * B * slots
-    nbytes = uniq * TM * TN * it + B * n_cols * it + B * n_rb * TM * 4 + 2 * ids.numel() * 4
-    peak = peaks["f32"] if inner.tiles.dtype == torch.float32 else peaks["bf16"]
-    t_ops, t_bytes = flops / peak, nbytes / peaks["bw"]
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), \
-        dict(flops=flops, bytes=nbytes, nonzero_slots=slots, unique_tiles=uniq)
-
-
-def measure(block_ell, fn, kw, model, xc, where, peaks):
-    """One entry on conv1's core of ``model`` fed the activations of ``xc``:
-    checked against the plain version, then timed with the plain version and
-    the BSR yardstick beside it."""
-    import torch
-    inner, x = core_input(model, xc, "conv1")
     B = x.shape[0]
-    n_out = inner.tile_ids.shape[0] * inner.tileshape[0]
-    args = (x, inner.tiles, inner.tile_ids, inner.col_blk, n_out)
+    TM, TN = tiles.shape[1], tiles.shape[2]
+    n_out = ids.shape[0] * TM
+    args = (x, tiles, ids, cols, n_out)
     y = fn(*args, **kw)
     ref = block_ell.block_ell_plain(*args)
     torch.cuda.synchronize()
+    if y.shape != ref.shape:
+        raise AssertionError("%s at %s: shape %s, plain %s"
+                             % (fn.__name__, where, tuple(y.shape), tuple(ref.shape)))
     err = float((y - ref).abs().max())
-    check(err, float(ref.abs().max()), TOL_F32, "%s at %s" % (fn.__name__, where))
+    tol = TOL_F32 if tiles.dtype == torch.float32 else TOL_BF16
+    check(err, float(ref.abs().max()), tol, "%s at %s" % (fn.__name__, where))
+    del y
     ms, _ = cuda_ms(lambda: fn(*args, **kw), reps=10)
     plain_ms, _ = cuda_ms(lambda: block_ell.block_ell_plain(*args), reps=5)
     try:
-        lib_ms, ylib = bsr_library_ms(inner, x)
+        lib_ms, ylib = bsr_library_ms(tiles, ids, cols, x)
         lib_err = float((ylib - ref).abs().max())
+        del ylib
     except (RuntimeError, NotImplementedError) as e:  # the yardstick only
         log("[kernels] torch.sparse.mm BSR yardstick unavailable: %s" % e)
         lib_ms = lib_err = None
-    bms, by, work = bound(inner, B, peaks)
+    w = bk.work(ids, TM, TN, x.shape[1], n_out, B, tiles.element_size(), peaks)
     log("[kernels] %s at %s: %s" % (fn.__name__, where, json.dumps(dict(
-        work, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_max_abs_err=lib_err, bound_ms=bms,
-        achieved_tflops=work["flops"] / ms / 1e9))))
+        w, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_max_abs_err=lib_err,
+        achieved_tflops=w["flops"] / ms / 1e9))))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": lib_ms}
 
 
-def phase_kernels(block_ell, paths, launches, vgg_launches, peaks):
+def measure(block_ell, bk, fn, kw, model, xc, where, peaks):
+    """One entry on conv1's core of ``model`` fed the activations of ``xc``."""
+    inner, x = core_input(model, xc, "conv1")
+    return measure_operand(block_ell, bk, fn, kw, inner.tiles, inner.tile_ids,
+                           inner.col_blk, x, where, peaks)
+
+
+def phase_kernels(block_ell, bk, paths, launches, peaks):
+    """One row per Pallas function (launches: summed over the main paths)."""
+    import numpy as np
+    import torch
     knet, xcs = paths["allconv"]
     nk, xn = paths["narrow"]
     be = block_ell
-    # one row per entry, at the shape its main path gave it; the depth-1
+    src = "keynet_tpu_torch/csrc/"
+    rows = {}
+
+    def row(fn, source, line, result):
+        rows[fn.__name__] = dict({"name": fn.__name__, "route": "cuda", "source": src + source,
+                                  "replaces": "keynet_tpu/ops/pallas_kernels.py:%d" % line,
+                                  "launches": launches[fn.__name__]}, **result)
+
+    # each slot-walk entry at the shape its main path gave it; the depth-1
     # entry is routed by no core here, so it runs where the JAX package
     # routes it (x past the TPU's VMEM budget: AllConvNet at B=1024)
-    plan = [(be.block_ell_matmul, {}, knet, xcs[1024], "keynet_tpu/ops/pallas_kernels.py:94",
-             "AllConvNet conv1 core, B=1024 (not routed on this card)"),
-            (be.block_ell_matmul_xres2, {}, nk, xn, "keynet_tpu/ops/pallas_kernels.py:289",
-             "3x16x16 spec conv1 core, B=64 (coverage, toy shape)"),
-            (be.block_ell_matmul_xresd, {"depth": 4}, knet, xcs[64],
-             "keynet_tpu/ops/pallas_kernels.py:390", "AllConvNet conv1 core, B=64")]
-    rows = []
-    for fn, kw, model, xc, replaces, where in plan:
-        row = {"name": fn.__name__, "route": "cuda",
-               "source": "keynet_tpu_torch/csrc/block_ell.cu", "replaces": replaces,
-               "launches": launches[fn.__name__]}
-        row.update(measure(be, fn, kw, model, xc, where, peaks))
-        rows.append(row)
-    # full-width numbers for the entries whose row above is at another size
-    measure(be, be.block_ell_matmul_xres2, {}, knet, xcs[64],
+    row(be.block_ell_matmul, "block_ell.cu", 94,
+        measure(be, bk, be.block_ell_matmul, {}, knet, xcs[1024],
+                "AllConvNet conv1 core, B=1024 (not routed on this card)", peaks))
+    row(be.block_ell_matmul_xres2, "block_ell.cu", 289,
+        measure(be, bk, be.block_ell_matmul_xres2, {}, nk, xn,
+                "3x16x16 spec conv1 core, B=64 (coverage, toy shape)", peaks))
+    row(be.block_ell_matmul_xresd, "block_ell.cu", 390,
+        measure(be, bk, be.block_ell_matmul_xresd, {"depth": 4}, knet, xcs[64],
+                "AllConvNet conv1 core, B=64", peaks))
+    # full-width numbers beside them: xres2 and xresd at the other batch,
+    # xres and grid on the operand xresd's row used
+    measure(be, bk, be.block_ell_matmul_xres2, {}, knet, xcs[64],
             "AllConvNet conv1 core, B=64 (full width)", peaks)
-    measure(be, be.block_ell_matmul_xresd, {"depth": 4}, knet, xcs[1024],
+    measure(be, bk, be.block_ell_matmul_xresd, {"depth": 4}, knet, xcs[1024],
             "AllConvNet conv1 core, B=1024", peaks)
+    for fn in (be.block_ell_matmul_xres, be.block_ell_matmul_grid):
+        measure(be, bk, fn, {}, knet, xcs[64], "AllConvNet conv1 core, B=64", peaks)
+    # xres and grid (the kernel bench's path) at the depth bench's operand,
+    # B=8, with xresd beside them
+    tiles, ids, cols, rng = bk.depth_operand("cuda")
+    x = torch.from_numpy(rng.normal(size=(8, ids.shape[0] * tiles.shape[2]))
+                         .astype(np.float32)).cuda()
+    where = "depth-bench operand (784 x 40, 27,000 tiles, f32), B=8"
+    row(be.block_ell_matmul_xres, "block_ell_xres.cu", 186,
+        measure_operand(be, bk, be.block_ell_matmul_xres, {}, tiles, ids, cols, x, where, peaks))
+    row(be.block_ell_matmul_grid, "block_ell_grid.cu", 449,
+        measure_operand(be, bk, be.block_ell_matmul_grid, {}, tiles, ids, cols, x, where, peaks))
+    measure_operand(be, bk, be.block_ell_matmul_xresd, {"depth": 4}, tiles, ids, cols, x,
+                    where, peaks)
+    del tiles, x
+    torch.cuda.empty_cache()
     # the periodic kernel at the VGG core with the most period slots
     vknet, vxcs, cores = paths["vgg"]
     name, core = max(((n, c) for n, c, _ in cores if c.period is not None),
                      key=lambda nc: periodic_work(nc[1])["slots"])
-    row = {"name": "periodic_block_ell_matvec", "route": "cuda",
-           "source": "keynet_tpu_torch/csrc/periodic_block_ell.cu",
-           "replaces": "keynet_tpu/ops/pallas_kernels.py:551",
-           "launches": vgg_launches["periodic_block_ell_matvec"]}
     for B in (32, 1):
         r = measure_periodic(be, vknet, vxcs[B], name, peaks)
-        if B == 1:
-            row.update(r)
-    rows.append(row)
-    return rows
+    row(be.periodic_block_ell_matvec, "periodic_block_ell.cu", 551, r)
+    return [rows[n] for n in be.ENTRIES]
 
 
 def periodic_work(core, B=1):
@@ -649,6 +716,33 @@ def measure_periodic(block_ell, knet, xc, layer, peaks):
 
 
 
+def phase_bench(block_ell, bk):
+    """Slice 3: the kernel bench in its three modes, with fewer trials; the
+    counts are set to 0 just before and read just after."""
+    import torch
+    block_ell.reset_launches()
+    rows = bk.kernel_bench(trials=3, target_ms=10.0)
+    sweep, spread = bk.depth_sweep(trials=3, target_ms=10.0)
+    rows += sweep
+    rows += bk.depth_bench(trials=3, target_ms=20.0)
+    torch.cuda.synchronize()
+    launches = dict(block_ell.LAUNCHES)
+    log("[bench] launches: %s" % json.dumps(launches))
+    driven = sorted({r["entry"] for r in rows})
+    for name in driven + ["block_ell_matmul_xres", "block_ell_matmul_grid"]:
+        if launches[name] <= 0:
+            raise AssertionError("%s was not launched on the bench path" % name)
+    worst = {}
+    for r in rows:
+        key = "%s %s" % (r["entry"], r["dtype"])
+        worst[key] = max(worst.get(key, 0.0), r["max_abs_err"] / max(1.0, r["scale"]))
+    log("[bench] entries driven: %s; worst max|diff|/max(1,scale) vs plain: %s"
+        % (driven, json.dumps(worst)))
+    log("[bench] xresd D=2/4/8 spread (noise floor): %s"
+        % json.dumps({"%s B=%d" % k: v for k, v in spread.items()}))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -656,16 +750,21 @@ def main():
         return 2
     t0 = time.perf_counter()
     kt, block_ell, smi = phase_build()
+    from keynet_tpu_torch import bench_kernels as bk
     kt.globals.precision("highest")
     name = torch.cuda.get_device_name(0)
-    card, peaks = card_peaks(name)
+    card, peaks = bk.card_peaks(name)
     log("[build] device %s (%d visible); bounds use %s data-sheet rates %s"
         % (name, torch.cuda.device_count(), card, json.dumps(peaks)))
     phase_parity(block_ell)
     paths, launches = phase_main_allconv(kt, block_ell)
     vgg_paths, vgg_launches = phase_main_vgg(kt, block_ell)
     paths.update(vgg_paths)
-    rows = phase_kernels(block_ell, paths, launches, vgg_launches, peaks)
+    bench_launches = phase_bench(block_ell, bk)
+    total = {n: launches[n] + vgg_launches[n] + bench_launches[n] for n in block_ell.ENTRIES}
+    log("[main] launches by path: %s" % json.dumps(
+        {"slice 1": launches, "slice 2 (VGG)": vgg_launches, "slice 3 (bench)": bench_launches}))
+    rows = phase_kernels(block_ell, bk, paths, total, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))
     print(smi)
     print(json.dumps({"kernels": rows}))

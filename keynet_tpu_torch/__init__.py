@@ -5,7 +5,9 @@ Host conversion (keygen, Toeplitz lowering, keying Ŵ = A·W·A⁻¹, packing)
 is numpy/scipy/C++ with the same rng draws, so the same seed gives the same
 keys and packed arrays; the keyed forward runs in PyTorch with the Block-ELL
 slot walk and its periodic mid-section as hand-written CUDA kernels
-(csrc/block_ell.cu, csrc/periodic_block_ell.cu).
+(csrc/block_ell.cu, csrc/periodic_block_ell.cu).  The two Block-ELL variants
+no operator routes to (csrc/block_ell_xres.cu, csrc/block_ell_grid.cu) run
+in the kernel bench, ``python -m keynet_tpu_torch.bench_kernels``.
 
 Quickstart:
 
@@ -32,6 +34,7 @@ from . import layer
 from . import models
 from . import system
 from . import serialize
+from . import profiling
 
 from .keys import keygen
 from .layer import KeyedLayer

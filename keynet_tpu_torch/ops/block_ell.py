@@ -1,6 +1,6 @@
 """Block-ELL kernels: wrappers, plain versions and launch counts.
 
-The counterpart of keynet_tpu/ops/pallas_kernels.py.  Four entries keep the
+The counterpart of keynet_tpu/ops/pallas_kernels.py.  Six entries keep the
 JAX names and signatures (without ``interpret``).  Three launch the slot-walk
 kernel (csrc/block_ell.cu):
 
@@ -10,8 +10,15 @@ kernel (csrc/block_ell.cu):
 
 On the TPU they differ in where x lives and in how many slots one dot fuses
 (``depth``); the CUDA kernel walks the slots one by one, so ``depth`` is
-checked and changes nothing.  The fourth launches the periodic kernel
-(csrc/periodic_block_ell.cu):
+checked and changes nothing.  Two more have kernels of their own, which no
+operator routes to (as in keynet_tpu; the kernel bench drives them):
+
+  block_ell_matmul_xres(...)   the slot walk with a cp.async tile ring
+                               (csrc/block_ell_xres.cu)
+  block_ell_matmul_grid(...)   the slot walk that keeps a staged tile over
+                               repeated ids (csrc/block_ell_grid.cu)
+
+The sixth launches the periodic kernel (csrc/periodic_block_ell.cu):
 
   periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R)
 
@@ -19,9 +26,12 @@ Contract (pallas_kernels.py:15-16, :96-98): x is (B, n_cb·TN) and is cast
 to the tile dtype; tiles are (n_uniq, TM, TN) f32 or bf16 with tile 0 all
 zeros; tile_ids and col_blk are (n_rb, KB) int32;
 y[:, r·TM:(r+1)·TM] = Σ_k x[:, col_blk[r,k]·TN : +TN] @ tiles[tile_ids[r,k]]ᵀ,
-accumulated and returned in f32 as (B, n_out_padded); columns past n_rb·TM
-are zero.  A slot with tile id 0 adds nothing.  The periodic entry computes
-rows [s, s+P·R) of an operator whose rows s+ρ+j·P share row s+ρ's tile ids
+accumulated and returned in f32.  The width is the JAX entry's
+(``out_width``): min(n_out_padded, ⌈n_rb/8⌉·8·TM) for the four entries that
+pad rows to groups of 8 (pallas_kernels.py:122, :130), min(n_out_padded,
+n_rb·TM) for the grid entry (:481, :484); columns past n_rb·TM are zero.  A
+slot with tile id 0 adds nothing.  The periodic entry computes rows
+[s, s+P·R) of an operator whose rows s+ρ+j·P share row s+ρ's tile ids
 (pallas_kernels.py:550-595) and returns them as (B, P·R·TM), rep-major.
 
 On a CPU tensor each entry computes its plain version (``block_ell_plain``,
@@ -42,16 +52,24 @@ import torch
 
 from ..globals import GLOBAL
 
-ENTRIES = ("block_ell_matmul", "block_ell_matmul_xres2", "block_ell_matmul_xresd",
-           "periodic_block_ell_matvec")
+ENTRIES = ("block_ell_matmul", "block_ell_matmul_xres", "block_ell_matmul_xres2",
+           "block_ell_matmul_xresd", "block_ell_matmul_grid", "periodic_block_ell_matvec")
 LAUNCHES = {name: 0 for name in ENTRIES}
+GROUP = 8  # row-blocks per grid step of the row-padded Pallas entries
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_ROOT, "keynet_tpu_torch", "csrc")
 # library name -> CUDA source; each source builds into its own library
 SOURCES = {"block_ell": os.path.join(_CSRC, "block_ell.cu"),
+           "block_ell_xres": os.path.join(_CSRC, "block_ell_xres.cu"),
+           "block_ell_grid": os.path.join(_CSRC, "block_ell_grid.cu"),
            "periodic_block_ell": os.path.join(_CSRC, "periodic_block_ell.cu")}
+# library name -> (launch function, number of int arguments)
+_LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 8), "block_ell_xres": ("block_ell_xres", 8),
+              "block_ell_grid": ("block_ell_grid", 8),
+              "periodic_block_ell": ("periodic_block_ell", 9)}
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
+_SMEM_MAX = 232448  # shared memory one block may use on sm_90
 _LIBS = {}
 _LOCK = threading.Lock()
 
@@ -72,14 +90,23 @@ def route(KB):
 
 # ------------------------------------------------------------------ plain
 
+def out_width(n_rb, TM, n_out_padded, grid=False):
+    """The width a JAX entry returns: its natural width, n_rb·TM for the grid
+    entry and ⌈n_rb/GROUP⌉·GROUP·TM for the others, cut to n_out_padded."""
+    natural = n_rb * TM if grid else -(-n_rb // GROUP) * GROUP * TM
+    return min(int(n_out_padded), natural)
+
+
 def block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out_padded):
     """The contract in plain PyTorch: gather + einsum (operators.py:453-458),
     chunked over row-blocks so the gathered tiles and x blocks stay under
     GLOBAL['PERIODIC_X_CHUNK_BYTES'].  bf16 operands are widened to f32
-    after rounding, so products and sums are f32 as in the kernel."""
+    after rounding, so products and sums are f32 as in the kernel.  Returns
+    (B, out_width(n_rb, TM, n_out_padded)), the row-padded entries' width."""
     B = x_padded.shape[0]
     n_rb, KB = tile_ids.shape
     TM, TN = tiles.shape[1], tiles.shape[2]
+    n_out_padded = out_width(n_rb, TM, n_out_padded)
     xb = x_padded.to(tiles.dtype).reshape(B, -1, TN)
     out = torch.zeros((B, n_out_padded), dtype=torch.float32, device=x_padded.device)
     budget = int(GLOBAL.get("PERIODIC_X_CHUNK_BYTES", 256 << 20))
@@ -130,15 +157,18 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the Block-ELL CUDA kernel needs the CUDA toolkit")
 
 
+def _headers():
+    """The shared headers in csrc/ (part of every source's build digest)."""
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+
+
 def _bind(name, lib):
     """Set the ctypes signature of a library's launch and error functions."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "block_ell":
-        lib.block_ell_slot_walk.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
-        lib.block_ell_slot_walk.restype = i32
-    else:
-        lib.periodic_block_ell.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
-        lib.periodic_block_ell.restype = i32
+    fn_name, n_int = _LAUNCH_FN[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ptr] * 5 + [i32] * n_int + [ptr]
+    fn.restype = i32
     err = getattr(lib, name + "_error_string")
     err.argtypes = [i32]
     err.restype = ctypes.c_char_p
@@ -154,8 +184,11 @@ def build(verbose=False):
         for name, src in SOURCES.items():
             if name in _LIBS:
                 continue
-            with open(src, "rb") as f:
-                digest = hashlib.sha1(f.read()).hexdigest()[:12]
+            h = hashlib.sha1()
+            for path in [src] + _headers():
+                with open(path, "rb") as f:
+                    h.update(f.read())
+            digest = h.hexdigest()[:12]
             so = os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
             proc = tmp = None
             if not os.path.exists(so):
@@ -217,8 +250,14 @@ def _operands(name, x_padded, tiles, tile_ids, col_blk):
         raise ValueError("%s: x width %d / col_blk %s do not fit TN=%d, tile_ids %s"
                          % (name, x_padded.shape[1], tuple(col_blk.shape), TN,
                             tuple(tile_ids.shape)))
-    return (x_padded.to(tiles.dtype).contiguous(), tiles.contiguous(),
-            tile_ids.contiguous(), col_blk.contiguous())
+    ops = (x_padded.to(tiles.dtype).contiguous(), tiles.contiguous(),
+           tile_ids.contiguous(), col_blk.contiguous())
+    # the kernels read x and tiles 16 bytes at a time (cp.async, float4)
+    if ops[0].data_ptr() % 16 or ops[1].data_ptr() % 16:
+        raise ValueError("%s: x and tiles must start on a 16-byte boundary "
+                         "(x at %#x, tiles at %#x)" % (name, ops[0].data_ptr(),
+                                                       ops[1].data_ptr()))
+    return ops
 
 
 def _launched(name, lib_name, err):
@@ -230,20 +269,26 @@ def _launched(name, lib_name, err):
     LAUNCHES[name] += 1
 
 
-def _slot_walk(name, x_padded, tiles, tile_ids, col_blk, n_out_padded):
+def _slot_walk(name, lib_name, x_padded, tiles, tile_ids, col_blk, n_out_padded,
+               grid=False):
+    """One slot-walk entry: the plain version on a CPU tensor, else the
+    launch of library ``lib_name``'s kernel; (B, out_width(..., grid)) f32."""
+    n_out = out_width(tile_ids.shape[0], tiles.shape[1], n_out_padded, grid)
     if x_padded.device.type == "cpu":
-        return block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out_padded)
+        return block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out)
     x, tiles, ids, cols = _operands(name, x_padded, tiles, tile_ids, col_blk)
     _, TM, TN = tiles.shape
     n_rb, KB = ids.shape
     B, n_cols = x.shape
-    n_out = int(n_out_padded)
     if -(-n_out // 128) > 65535:
         raise ValueError("%s: n_out_padded %d exceeds the grid" % (name, n_out))
+    if grid and (128 + 64) * (TN * tiles.element_size() + 16) > _SMEM_MAX:
+        raise ValueError("%s: a %d-wide tile slice does not fit a block's shared "
+                         "memory" % (name, TN))
     out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
     if B == 0 or n_out == 0:
         return out
-    _launched(name, "block_ell", _lib("block_ell").block_ell_slot_walk(
+    _launched(name, lib_name, getattr(_lib(lib_name), _LAUNCH_FN[lib_name][0])(
         x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         out.data_ptr(), B, n_cols, n_rb, KB, TM, TN, n_out,
         int(tiles.dtype == torch.bfloat16),
@@ -253,13 +298,20 @@ def _slot_walk(name, x_padded, tiles, tile_ids, col_blk, n_out_padded):
 
 def block_ell_matmul(x_padded, tiles, tile_ids, col_blk, n_out_padded):
     """Replaces pallas_kernels.block_ell_matmul."""
-    return _slot_walk("block_ell_matmul", x_padded, tiles, tile_ids,
+    return _slot_walk("block_ell_matmul", "block_ell", x_padded, tiles, tile_ids,
                       col_blk, n_out_padded)
+
+
+def block_ell_matmul_xres(x_padded, tiles, tile_ids, col_blk, n_out_padded):
+    """Replaces pallas_kernels.block_ell_matmul_xres: the slot walk whose
+    tile panels stream through a cp.async ring (csrc/block_ell_xres.cu)."""
+    return _slot_walk("block_ell_matmul_xres", "block_ell_xres", x_padded, tiles,
+                      tile_ids, col_blk, n_out_padded)
 
 
 def block_ell_matmul_xres2(x_padded, tiles, tile_ids, col_blk, n_out_padded):
     """Replaces pallas_kernels.block_ell_matmul_xres2."""
-    return _slot_walk("block_ell_matmul_xres2", x_padded, tiles, tile_ids,
+    return _slot_walk("block_ell_matmul_xres2", "block_ell", x_padded, tiles, tile_ids,
                       col_blk, n_out_padded)
 
 
@@ -270,8 +322,16 @@ def block_ell_matmul_xresd(x_padded, tiles, tile_ids, col_blk, n_out_padded,
     if int(depth) != depth or depth < 1:
         raise ValueError("block_ell_matmul_xresd: depth must be a positive "
                          "integer, got %r" % (depth,))
-    return _slot_walk("block_ell_matmul_xresd", x_padded, tiles,
+    return _slot_walk("block_ell_matmul_xresd", "block_ell", x_padded, tiles,
                       tile_ids, col_blk, n_out_padded)
+
+
+def block_ell_matmul_grid(x_padded, tiles, tile_ids, col_blk, n_out_padded):
+    """Replaces pallas_kernels.block_ell_matmul_grid: the slot walk that
+    keeps a staged tile slice while consecutive non-zero slots share its id
+    (csrc/block_ell_grid.cu).  Returns (B, min(n_out_padded, n_rb·TM))."""
+    return _slot_walk("block_ell_matmul_grid", "block_ell_grid", x_padded, tiles,
+                      tile_ids, col_blk, n_out_padded, grid=True)
 
 
 def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):

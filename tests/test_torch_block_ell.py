@@ -1,8 +1,9 @@
-"""The port's plain Block-ELL function against the JAX package's Pallas
-entries run in interpret mode (as tests/test_operators.py runs them), the
-port's routing, and the rule that without a card every entry point raises
-unless device='cpu' is given.  The CUDA kernel itself runs in chip_smoke.py
-and in the card-only test at the end."""
+"""The port's Block-ELL entries on CPU tensors (their plain version) against
+the JAX package's Pallas entries run in interpret mode (as
+tests/test_operators.py runs them), values and output width, the port's
+routing, and the rule that without a card every entry point raises unless
+device='cpu' is given.  The CUDA kernels themselves run in chip_smoke.py
+and in the card-only tests at the end."""
 
 import numpy as np
 import pytest
@@ -24,7 +25,10 @@ ENTRIES = [("block_ell_matmul", pk.block_ell_matmul, {}),
            ("block_ell_matmul_xres2", pk.block_ell_matmul_xres2, {}),
            ("block_ell_matmul_xresd", pk.block_ell_matmul_xresd, {"depth": 2}),
            ("block_ell_matmul_xresd", pk.block_ell_matmul_xresd, {"depth": 3}),
-           ("block_ell_matmul_xresd", pk.block_ell_matmul_xresd, {"depth": 4})]
+           ("block_ell_matmul_xresd", pk.block_ell_matmul_xresd, {"depth": 4}),
+           ("block_ell_matmul_xres", pk.block_ell_matmul_xres, {}),
+           ("block_ell_matmul_grid", pk.block_ell_matmul_grid, {})]
+ENTRY_IDS = [e[0] + str(e[2].get("depth", "")) for e in ENTRIES]
 
 
 def _operands(case, seed=0):
@@ -39,15 +43,17 @@ def _operands(case, seed=0):
     return x, tiles, ids, cols
 
 
-def _compare(fn, kw, case, bf16):
+def _compare(name, fn, kw, case, bf16, n_out=None):
+    """The port's entry on CPU tensors (its plain version) against the JAX
+    entry in interpret mode: same shape, values within the tolerance."""
     x, tiles, ids, cols = _operands(case)
-    n_out = ids.shape[0] * TM
+    n_out = ids.shape[0] * TM if n_out is None else n_out
     jt = jnp.asarray(tiles, dtype=jnp.bfloat16 if bf16 else jnp.float32)
     y_jax = np.asarray(fn(jnp.asarray(x), jt, jnp.asarray(ids), jnp.asarray(cols),
                           n_out, interpret=True, **kw))
     tt = torch.from_numpy(tiles).to(torch.bfloat16 if bf16 else torch.float32)
-    y = block_ell.block_ell_plain(torch.from_numpy(x), tt, torch.from_numpy(ids),
-                                  torch.from_numpy(cols), n_out)
+    y = getattr(block_ell, name)(torch.from_numpy(x), tt, torch.from_numpy(ids),
+                                 torch.from_numpy(cols), n_out, **kw)
     assert y.dtype == torch.float32 and tuple(y.shape) == y_jax.shape
     scale = max(1.0, float(np.abs(y_jax).max()))
     # f32: both IEEE f32, only the sum order differs; bf16: both round the
@@ -57,18 +63,28 @@ def _compare(fn, kw, case, bf16):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("entry", range(len(ENTRIES)),
-                         ids=[e[0] + str(e[2].get("depth", "")) for e in ENTRIES])
+@pytest.mark.parametrize("entry", range(len(ENTRIES)), ids=ENTRY_IDS)
 def test_plain_matches_pallas_f32(entry, case):
-    _, fn, kw = ENTRIES[entry]
-    _compare(fn, kw, case, bf16=False)
+    _compare(*ENTRIES[entry], case, bf16=False)
 
 
-@pytest.mark.parametrize("entry", range(len(ENTRIES)),
-                         ids=[e[0] + str(e[2].get("depth", "")) for e in ENTRIES])
+@pytest.mark.parametrize("entry", range(len(ENTRIES)), ids=ENTRY_IDS)
 def test_plain_matches_pallas_bf16(entry):
-    _, fn, kw = ENTRIES[entry]
-    _compare(fn, kw, CASES[1], bf16=True)
+    _compare(*ENTRIES[entry], CASES[1], bf16=True)
+
+
+@pytest.mark.parametrize("width", ["n_rb", "group", "group+1"])
+@pytest.mark.parametrize("entry", [0, 1, 4, 5, 6], ids=[ENTRY_IDS[i] for i in (0, 1, 4, 5, 6)])
+def test_entry_width_matches_pallas(entry, width):
+    """Every entry returns the JAX entry's width: the row-padded ones
+    min(n_out_padded, ⌈n_rb/8⌉·8·TM), the grid one min(n_out_padded,
+    n_rb·TM), with zeros past n_rb·TM; n_rb = 11 pads to 16."""
+    n_rb = CASES[0][1]
+    group = -(-n_rb // 8) * 8 * TM
+    n_out = {"n_rb": n_rb * TM, "group": group, "group+1": group + TM}[width]
+    _compare(*ENTRIES[entry], CASES[0], bf16=False, n_out=n_out)
+    assert block_ell.out_width(n_rb, TM, n_out) == min(n_out, group)
+    assert block_ell.out_width(n_rb, TM, n_out, grid=True) == n_rb * TM
 
 
 def test_cpu_entries_use_plain_version_and_do_not_count():
@@ -81,6 +97,16 @@ def test_cpu_entries_use_plain_version_and_do_not_count():
         assert torch.equal(y, ref)
     assert (ref[:, 11 * TM:] == 0).all()     # columns past n_rb*TM are zero
     assert all(v == 0 for v in block_ell.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", ["block_ell_matmul_xres", "block_ell_matmul_grid"])
+def test_new_entries_never_fall_back(name):
+    """The xres and grid entries launch their kernel or raise as well."""
+    x = torch.empty((2, 256), device="meta")
+    tiles = torch.empty((3, 128, 128), device="meta")
+    ids = torch.empty((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        getattr(block_ell, name)(x, tiles, ids, ids, 128)
 
 
 def test_non_cpu_tensor_never_falls_back():
@@ -167,9 +193,42 @@ def test_kernel_matches_plain_on_card():
     ref = block_ell.block_ell_plain(x, tiles, ids, cols, 5 * TM)
     for fn, kw in [(block_ell.block_ell_matmul, {}), (block_ell.block_ell_matmul_xres2, {}),
                    (block_ell.block_ell_matmul_xresd, {"depth": 3}),
-                   (block_ell.block_ell_matmul_xresd, {"depth": 4})]:
+                   (block_ell.block_ell_matmul_xresd, {"depth": 4}),
+                   (block_ell.block_ell_matmul_xres, {}), (block_ell.block_ell_matmul_grid, {})]:
         y = fn(x, tiles, ids, cols, 5 * TM, **kw)
         assert float((y - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["block_ell_matmul_xres", "block_ell_matmul_grid"])
+def test_staged_kernels_on_repeated_ids_and_wide_tiles(name):
+    """Needs the card: the xres and grid kernels against the plain version
+    in f32 and bf16 at TN = 256 and TM = 256, on rows whose consecutive
+    non-zero slots repeat a tile id (a, a, 0, a: the grid kernel keeps its
+    staged slice over the id-0 slot) and rows that end and start on one id."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
+    rng = np.random.default_rng(2)
+    fn = getattr(block_ell, name)
+    for B, n_rb, KB, n_uniq, n_cb, TM_, TN_ in ((5, 9, 6, 7, 5, 128, 256),
+                                               (130, 6, 5, 6, 4, 256, 128)):
+        tiles = rng.standard_normal((n_uniq, TM_, TN_)).astype(np.float32)
+        tiles[0] = 0.0
+        ids = rng.integers(1, n_uniq, size=(n_rb, KB)).astype(np.int32)
+        ids[::2, 1] = ids[::2, 0]
+        ids[::2, 2] = 0
+        ids[::2, 3] = ids[::2, 0]
+        ids[1:, 0] = ids[:-1, -1]            # row r+1 starts on row r's last id
+        cols = rng.integers(0, n_cb, size=(n_rb, KB)).astype(np.int32)
+        x = torch.from_numpy(rng.standard_normal((B, n_cb * TN_)).astype(np.float32)).cuda()
+        ids_d, cols_d = torch.from_numpy(ids).cuda(), torch.from_numpy(cols).cuda()
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+            t = torch.from_numpy(tiles).cuda().to(dtype)
+            ref = block_ell.block_ell_plain(x, t, ids_d, cols_d, n_rb * TM_)
+            y = fn(x, t, ids_d, cols_d, n_rb * TM_)
+            torch.cuda.synchronize()
+            assert y.shape == ref.shape
+            assert float((y - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
 
 
 @pytest.mark.cuda
@@ -184,8 +243,10 @@ def test_kernel_skips_zero_slots():
     ids[:, 0] = 0                        # ... through the zero tile
     x[:, 6 * TN:] = float("inf")         # which no other slot reads
     cols[:, 1:] = torch.remainder(cols[:, 1:], 6)
-    y = block_ell.block_ell_matmul_xresd(x, tiles, ids, cols, 13 * TM, depth=4)
-    assert bool(torch.isfinite(y).all())
+    for fn, kw in ((block_ell.block_ell_matmul_xresd, {"depth": 4}),
+                   (block_ell.block_ell_matmul_xres, {}), (block_ell.block_ell_matmul_grid, {})):
+        y = fn(x, tiles, ids, cols, 13 * TM, **kw)
+        assert bool(torch.isfinite(y).all())
 
 
 @pytest.mark.cuda
