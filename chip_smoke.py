@@ -20,7 +20,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
                the periodic kernel against its plain version (f32 and bf16,
                s = 0 and s > 0, P below 8 and P not a multiple of the 64-row
                tile, R in {1, 7, 31}, B in {1, 5, 32}, TM = 256, id-0 slots,
-               an all-zero period row);
+               an all-zero period row); then id-0 slots that point at an
+               all-inf x block must add nothing, in every entry;
   3. main path, slice 1 (launch counts set to 0 just before, read just
                after): StochasticKeynet AllConvNet (3x32x32, alpha=2,
                blocksize 8, seed 0, AllConvNet(seed=1)) at B=64 and B=1024,
@@ -55,7 +56,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
                bench's operand at B=8), plus xres, grid and xresd at the
                full-width AllConvNet conv1 core at B=64 and the depth-2
                entry at that core, and the periodic kernel at the VGG core
-               with the most period slots at B=1 and B=32: kernel, plain
+               with the most period slots at B=1, 8 and 32 (at B=1 also
+               with the shared memory of one block an SM), and the slot
+               walk on that core's head and tail rows: kernel, plain
                version and library times (BSR torch.sparse.mm; torch.bmm
                over pre-gathered operands for the periodic kernel, gathers
                not timed) with CUDA events, and the bound from the card's
@@ -63,6 +66,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 The last lines are the card's name and power limit, a JSON line of kernels,
 and {"ok": true, "device": {...}}.  Nothing here imports JAX or keynet_tpu.
+
+    python3 chip_smoke.py --ab TAG=SRC_DIR [...] [--rounds N]
+
+builds the slot walk and periodic kernel of other csrc/ directories and
+times them against the checkout's, in turns, on one converted VGG-16 and
+AllConvNet (phase_ab).
 """
 
 import json
@@ -167,10 +176,14 @@ def phase_parity(block_ell):
                ("block_ell_matmul_xresd", block_ell.block_ell_matmul_xresd, {"depth": 3}),
                ("block_ell_matmul_xresd", block_ell.block_ell_matmul_xresd, {"depth": 4}),
                ("block_ell_matmul_grid", block_ell.block_ell_matmul_grid, {})]
-    # (B, n_rb, KB, n_uniq, n_cb, TM, TN, extra output columns)
+    # (B, n_rb, KB, n_uniq, n_cb, TM, TN, extra output columns): B reaches
+    # every row tile of the slot walk (8: 1, 5; 16: 9; 32: 31; 64: 33, 64;
+    # 128: 65, 130, the last over two batch tiles), TM = TN = 256 among them
     cases = [(1, 11, 7, 9, 6, 128, 128, 0), (5, 13, 9, 12, 7, 128, 128, 128),
              (130, 5, 3, 6, 4, 256, 128, 0), (130, 9, 16, 20, 10, 128, 256, 0),
-             (5, 6, 5, 4, 3, 256, 256, 0)]
+             (5, 6, 5, 4, 3, 256, 256, 0), (9, 7, 6, 8, 5, 128, 128, 0),
+             (31, 5, 9, 10, 6, 256, 256, 0), (33, 6, 5, 7, 5, 128, 128, 0),
+             (64, 5, 8, 9, 6, 128, 256, 0), (65, 4, 6, 7, 4, 256, 256, 0)]
     worst = {}
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         for case in cases:
@@ -192,10 +205,15 @@ def phase_parity(block_ell):
                 check(err, scale, tol, "%s%s %s %s" % (name, kw, str(dtype), case))
                 key = (name, kw.get("depth"), str(dtype))
                 worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
-    # periodic kernel: (B, s, P, R, KB, n_uniq, n_cb, TM, TN)
+    # periodic kernel: (B, s, P, R, KB, n_uniq, n_cb, TM, TN); R·B reaches
+    # every row tile (8: 1, 8; 16: 9, 16; 32: 31; 64: 35, 64; 128: 65, 224,
+    # 992), TM = TN = 256 among them
     pcases = [(1, 0, 3, 1, 4, 7, 9, 128, 128), (5, 2, 5, 7, 3, 9, 11, 128, 128),
               (32, 3, 13, 31, 5, 12, 17, 128, 128), (5, 1, 6, 7, 2, 5, 8, 256, 128),
-              (32, 0, 9, 7, 19, 30, 40, 128, 256)]
+              (32, 0, 9, 7, 19, 30, 40, 128, 256), (1, 1, 4, 8, 5, 6, 7, 256, 256),
+              (3, 0, 5, 3, 4, 7, 6, 128, 128), (2, 2, 3, 8, 6, 8, 9, 128, 256),
+              (1, 1, 6, 31, 7, 9, 12, 128, 128), (8, 0, 4, 8, 5, 8, 7, 256, 256),
+              (5, 3, 3, 13, 4, 6, 8, 128, 128)]
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         for case in pcases:
             B, s0, P, R, KB, n_uniq, n_cb, TM, TN = case
@@ -217,6 +235,45 @@ def phase_parity(block_ell):
     for (name, depth, dt), e in sorted(worst.items(), key=str):
         log("[parity] %-25s depth=%-4s %-15s worst max|diff|/max(1,scale) = %.3g"
             % (name, depth, dt, e))
+    zero_slots_skipped(block_ell, entries)
+
+
+def zero_slots_skipped(block_ell, entries):
+    """A slot with tile id 0 adds nothing, even where the x block it points
+    at is not finite (the contract, pallas_kernels.py:15-16): every row's
+    first slot reads an all-inf x block through tile 0, which no other slot
+    reads; each entry and the periodic kernel must equal the plain version
+    on x with that block zeroed, at row tiles 8, 64 and 128."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1)
+    s0, P, R, n_rb, TN = 1, 4, 2, 9, 128
+    for B in (1, 33, 130):
+        x, tiles, ids, cols = random_block_ell(rng, B, n_rb, 6, 7, 7, 128, TN, torch.float32)
+        for j in range(1, R):
+            ids[s0 + j * P:s0 + (j + 1) * P] = ids[s0:s0 + P]
+        cols = torch.remainder(cols, 6)
+        ids[:, 0], cols[:, 0] = 0, 6
+        x_zero = x.clone()
+        x_zero[:, 6 * TN:] = 0.0
+        x[:, 6 * TN:] = float("inf")
+        n_out = n_rb * 128
+        ref = block_ell.block_ell_plain(x_zero, tiles, ids, cols, n_out)
+        runs = [("%s%s" % (name, kw), fn(x, tiles, ids, cols, n_out, **kw),
+                 ref[:, :block_ell.out_width(n_rb, 128, n_out, grid=name.endswith("_grid"))])
+                for name, fn, kw in entries]
+        runs.append(("periodic_block_ell_matvec",
+                     block_ell.periodic_block_ell_matvec(x, tiles, ids, cols, s0, P, R),
+                     block_ell.periodic_block_ell_plain(x_zero, tiles, ids, cols, s0, P, R)))
+        torch.cuda.synchronize()
+        for what, y, want in runs:
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError("%s B=%d: an id-0 slot on inf x gave a non-finite "
+                                     "output" % (what, B))
+            check(float((y - want).abs().max()), float(want.abs().max()), TOL_F32,
+                  "%s B=%d, id-0 slots on inf x" % (what, B))
+    log("[parity] id-0 slots on inf x add nothing: every slot-walk entry and the "
+        "periodic kernel, B = 1, 33, 130")
 
 
 # --------------------------------------------------------------- phase 3
@@ -308,15 +365,36 @@ def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5):
     return xc, forwards
 
 
-def phase_main_allconv(kt, block_ell):
-    import numpy as np
-    import torch
+def allconv_keynet(kt):
+    """The StochasticKeynet AllConvNet of bench.py's second configuration:
+    (source net, keyed sensor, keyed net)."""
     net = kt.models.AllConvNet(seed=1)
     t = time.perf_counter()
     sensor, knet = kt.StochasticKeynet((3, 32, 32), net, alpha=2, blocksize=8,
                                        seed=0, device="cuda")
     log("[main] AllConvNet StochasticKeynet conversion: %.1f s"
         % (time.perf_counter() - t))
+    return net, sensor, knet
+
+
+def vgg_keynet(kt):
+    """The Givens-orthogonal VGG-16 at 3x224x224 of
+    scripts/run_vgg_orth_224.py: (source net, keyed sensor, keyed net)."""
+    net = kt.models.VGG16(seed=5)
+    t = time.perf_counter()
+    sensor, knet = kt.Keynet((3, 224, 224), net, global_geometric="identity",
+                             local_geometric="givens_orthogonal", alpha=2.0,
+                             blocksize=14, local_photometric="uniform_random_affine",
+                             beta=1.0, gamma=1.0, memoryorder="channel", seed=0,
+                             device="cuda")
+    log("[vgg] conversion: %.1f s (host), nnz %d" % (time.perf_counter() - t,
+                                                     knet.num_parameters()))
+    return net, sensor, knet
+
+
+def phase_main_allconv(kt, block_ell):
+    import torch
+    net, sensor, knet = allconv_keynet(kt)
     log("[main] route sensor: %s" % route_str(sensor.op()))
     for name, l in knet.layers().items():
         if l != "relu":
@@ -370,15 +448,7 @@ def phase_main_vgg(kt, block_ell):
     """Slice 2: the Givens-orthogonal VGG-16 at 3x224x224 through kt.Keynet,
     keyed vs source at B=1, 8 and 32, with the launches read right after."""
     import torch
-    net = kt.models.VGG16(seed=5)
-    t = time.perf_counter()
-    sensor, knet = kt.Keynet((3, 224, 224), net, global_geometric="identity",
-                             local_geometric="givens_orthogonal", alpha=2.0,
-                             blocksize=14, local_photometric="uniform_random_affine",
-                             beta=1.0, gamma=1.0, memoryorder="channel", seed=0,
-                             device="cuda")
-    conv_s = time.perf_counter() - t
-    log("[vgg] conversion: %.1f s (host), nnz %d" % (conv_s, knet.num_parameters()))
+    net, sensor, knet = vgg_keynet(kt)
     log("[vgg] route sensor: %s" % route_str(sensor.op()))
     for name, l in knet.layers().items():
         if l != "relu":
@@ -627,10 +697,34 @@ def phase_kernels(block_ell, bk, paths, launches, peaks):
     vknet, vxcs, cores = paths["vgg"]
     name, core = max(((n, c) for n, c, _ in cores if c.period is not None),
                      key=lambda nc: periodic_work(nc[1])["slots"])
-    for B in (32, 1):
+    for B in (32, 8, 1):
         r = measure_periodic(be, vknet, vxcs[B], name, peaks)
     row(be.periodic_block_ell_matvec, "periodic_block_ell.cu", 551, r)
+    periodic_resident_blocks(be, vknet, vxcs[1], name)
+    # the slot walk on the rows of that core outside its period, as the
+    # forward launches it: the head rows [0, s) and the tail rows [s+P·R, n_rb)
+    for B in (1, 8, 32):
+        core, x = core_input(vknet, vxcs[B], name)
+        fn = be.route(core.tile_ids.shape[1])
+        total = {}
+        for part, (a, b) in zip(("head", "tail"), outside_period(core)):
+            res = measure_operand(be, bk, fn, {}, core.tiles, core.tile_ids[a:b],
+                                  core.col_blk[a:b], x, "VGG16 orth %s core %s rows [%d, %d), "
+                                  "B=%d" % (name, part, a, b, B), peaks)
+            for k, v in res.items():
+                if isinstance(v, float) and k != "max_abs_err":
+                    total[k] = total.get(k, 0.0) + v
+        log("[kernels] %s at VGG16 orth %s core head + tail rows, B=%d: %s"
+            % (fn.__name__, name, B, json.dumps(total)))
     return [rows[n] for n in be.ENTRIES]
+
+
+def outside_period(core):
+    """The row-block ranges of a periodic core that the slot walk runs:
+    [0, s) and [s+P·R, n_rb), the empty ones left out."""
+    s, P, R = core.period
+    n_rb = core.tile_ids.shape[0]
+    return [(a, b) for a, b in ((0, s), (s + P * R, n_rb)) if b > a]
 
 
 def periodic_work(core, B=1):
@@ -714,6 +808,34 @@ def measure_periodic(block_ell, knet, xc, layer, peaks):
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
+def periodic_resident_blocks(block_ell, knet, xc, layer):
+    """The periodic kernel on ``layer``'s core launched with launch_plan's
+    shared memory and with 120,000 B, which leaves room for one block an SM
+    (228 KB a multiprocessor): its time and the rate at which it streams the
+    per-slot period tiles, as the blocks an SM can hold change.  The output
+    must not change."""
+    import torch
+    core, x = core_input(knet, xc, layer)
+    s, P, R = core.period
+    args = (x, core.tiles, core.tile_ids, core.col_blk, s, P, R)
+    plan_fn = block_ell.launch_plan
+    plan = plan_fn(R * x.shape[0], P * core.tileshape[0], *core.tileshape,
+                   core.tiles.dtype, periodic=True)
+    tile_bytes = periodic_work(core, x.shape[0])["period_tile_bytes"]
+    res = {"BT": plan["BT"]}
+    y = block_ell.periodic_block_ell_matvec(*args)
+    for smem in (plan["smem"], 120000):
+        block_ell.launch_plan = lambda *a, **k: dict(plan_fn(*a, **k), smem=smem)
+        try:
+            if not torch.equal(block_ell.periodic_block_ell_matvec(*args), y):
+                raise AssertionError("periodic kernel at %d B of shared memory: another "
+                                     "output" % smem)
+            ms = cuda_ms(lambda: block_ell.periodic_block_ell_matvec(*args), reps=10)[0]
+        finally:
+            block_ell.launch_plan = plan_fn
+        res["smem %d" % smem] = {"ms": ms, "period_tile_TBps": tile_bytes / ms / 1e9}
+    log("[kernels] periodic_block_ell_matvec at VGG16 orth %s core %s, B=%d, by shared "
+        "memory asked: %s" % (layer, core.period, x.shape[0], json.dumps(res)))
 
 
 def phase_bench(block_ell, bk):
@@ -743,31 +865,162 @@ def phase_bench(block_ell, bk):
     return launches
 
 
-def main():
+# --------------------------------------------------------------- A/B
+AB_LIBS = ("block_ell", "periodic_block_ell")
+
+
+class _LegacyLib:
+    """A slot-walk or periodic library built from a source whose launch
+    takes neither a row tile nor shared memory (the kernels before
+    launch_plan): the wrapper's last two int arguments are dropped."""
+
+    def __init__(self, block_ell, name, lib):
+        import ctypes
+        fn_name, n_int = block_ell._LAUNCH_FN[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (n_int - 2) + [ctypes.c_void_p]
+        setattr(self, fn_name, lambda *a: fn(*a[:-3], a[-1]))
+        setattr(self, name + "_error_string", getattr(lib, name + "_error_string"))
+
+
+def build_version(block_ell, src_dir):
+    """src_dir's slot walk and periodic kernel, built and loaded: {library
+    name: library}; a source from before launch_plan is wrapped."""
+    libs = block_ell.build(verbose=True, src_dir=src_dir, names=AB_LIBS)
+    for name in AB_LIBS:
+        with open(os.path.join(src_dir, name + ".cu")) as f:
+            if "int BT, int smem" not in f.read():
+                libs[name] = _LegacyLib(block_ell, name, libs[name])
+    return libs
+
+
+def phase_ab(kt, block_ell, versions, rounds):
+    """Kernels and forwards of several builds of the slot walk and the
+    periodic kernel, on one converted VGG-16 and AllConvNet, in turns
+    (round r runs the versions in order, round r+1 in reverse: A B B A ...);
+    prints the medians, each version's max|diff| from the first version's
+    outputs, and one JSON line."""
     import torch
+    vnet, vsensor, vknet = vgg_keynet(kt)
+    anet, asensor, aknet = allconv_keynet(kt)
+    cores = [(n, c) for n, c, _ in block_ell_cores(vsensor, vknet)
+             if c.period is not None and n != "sensor"]
+    rng_x = {}
+    import numpy as np
+    for B in (1, 8, 32):
+        x = np.random.default_rng(100 + B).standard_normal((B, 3, 224, 224)).astype(np.float32)
+        rng_x["vgg", B] = vsensor.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor()
+    for B in (64, 1024):
+        x = np.random.default_rng(B).standard_normal((B, 3, 32, 32)).astype(np.float32)
+        rng_x["allconv", B] = asensor.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor()
+    items = {}   # name -> callable returning a tensor
+    for B in (1, 8, 32):
+        items["VGG16 orth forward B=%d" % B] = (lambda k=vknet, x=rng_x["vgg", B]: k.forward(x))
+    for B in (64, 1024):
+        items["AllConvNet forward B=%d" % B] = (lambda k=aknet, x=rng_x["allconv", B]:
+                                               k.forward(x))
+    for B in (1, 8, 32):
+        for name, _ in cores:
+            core, x = core_input(vknet, rng_x["vgg", B], name)
+            s, P, R = core.period
+            args = (x, core.tiles, core.tile_ids, core.col_blk, s, P, R)
+            items["periodic %s B=%d" % (name, B)] = (
+                lambda a=args: block_ell.periodic_block_ell_matvec(*a))
+            fn = block_ell.route(core.tile_ids.shape[1])
+            for a, b in outside_period(core):
+                items["slot walk %s rows [%d, %d) B=%d" % (name, a, b, B)] = (
+                    lambda f=fn, c=core, x=x, a=a, b=b: f(x, c.tiles, c.tile_ids[a:b],
+                                                          c.col_blk[a:b], (b - a) * c.tileshape[0]))
+    for B in (64, 1024):
+        core, x = core_input(aknet, rng_x["allconv", B], "conv1")
+        items["slot walk AllConvNet conv1 B=%d" % B] = (
+            lambda c=core, x=x: block_ell.block_ell_matmul_xresd(
+                x, c.tiles, c.tile_ids, c.col_blk, c.tile_ids.shape[0] * c.tileshape[0]))
+    from keynet_tpu_torch import bench_kernels as bk
+    tiles, ids, cols, rng = bk.depth_operand("cuda")
+    xd = torch.from_numpy(rng.normal(size=(8, ids.shape[0] * tiles.shape[2]))
+                          .astype(np.float32)).cuda()
+    items["slot walk depth-bench operand B=8"] = (
+        lambda: block_ell.block_ell_matmul_xresd(xd, tiles, ids, cols, ids.shape[0] * 128))
+
+    saved = {n: block_ell._LIBS[n] for n in AB_LIBS}
+    times = {(v, k): [] for v, _ in versions for k in items}
+    first, diff = {}, {}
+    try:
+        for r in range(rounds):
+            for tag, libs in (versions if r % 2 == 0 else versions[::-1]):
+                block_ell._LIBS.update(libs)
+                for k, fn in items.items():
+                    y = fn()
+                    torch.cuda.synchronize()
+                    if k not in first:
+                        first[k] = (tag, y.float(), float(y.abs().max()))
+                    elif r == 0 or (tag, k) not in diff:
+                        diff[tag, k] = float((y.float() - first[k][1]).abs().max())
+                    del y
+                    ms, _ = cuda_ms(fn, reps=3 if "forward B=32" in k or "1024" in k else 5)
+                    times[tag, k].append(ms)
+    finally:
+        block_ell._LIBS.update(saved)
+    summary = {}
+    for k in items:
+        summary[k] = {tag: statistics.median(times[tag, k]) for tag, _ in versions}
+        summary[k]["max_abs_diff"] = {tag: diff.get((tag, k), 0.0) for tag, _ in versions}
+        summary[k]["scale"] = first[k][2]
+        log("[ab] %s: %s" % (k, json.dumps(summary[k])))
+    for tag, _ in versions:
+        for agg, pre in (("periodic", "periodic "), ("slot walk VGG", "slot walk conv")):
+            tot = {B: sum(summary[k][tag] for k in items
+                          if k.startswith(pre) and k.endswith(" B=%d" % B)) for B in (1, 8, 32)}
+            log("[ab] %s: %s summed over the VGG cores: %s" % (tag, agg, json.dumps(tot)))
+    print(json.dumps({"ab": summary, "rounds": rounds,
+                      "order": [t for t, _ in versions]}), flush=True)
+
+
+def main(argv=None):
+    """python3 chip_smoke.py: the smoke run above.  python3 chip_smoke.py
+    --ab TAG=SRC_DIR [...] [--rounds N]: the checkout's build ("change")
+    against builds of other csrc/ directories (e.g. the parent commit's,
+    unpacked with git archive), in turns (phase_ab)."""
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ab", nargs="+", metavar="TAG=SRC_DIR")
+    ap.add_argument("--rounds", type=int, default=6)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     kt, block_ell, smi = phase_build()
-    from keynet_tpu_torch import bench_kernels as bk
     kt.globals.precision("highest")
     name = torch.cuda.get_device_name(0)
-    card, peaks = bk.card_peaks(name)
-    log("[build] device %s (%d visible); bounds use %s data-sheet rates %s"
-        % (name, torch.cuda.device_count(), card, json.dumps(peaks)))
-    phase_parity(block_ell)
-    paths, launches = phase_main_allconv(kt, block_ell)
-    vgg_paths, vgg_launches = phase_main_vgg(kt, block_ell)
-    paths.update(vgg_paths)
-    bench_launches = phase_bench(block_ell, bk)
-    total = {n: launches[n] + vgg_launches[n] + bench_launches[n] for n in block_ell.ENTRIES}
-    log("[main] launches by path: %s" % json.dumps(
-        {"slice 1": launches, "slice 2 (VGG)": vgg_launches, "slice 3 (bench)": bench_launches}))
-    rows = phase_kernels(block_ell, bk, paths, total, peaks)
+    rows = None
+    if args.ab:
+        versions = [(tag, build_version(block_ell, os.path.abspath(d)))
+                    for tag, d in (a.split("=", 1) for a in args.ab)]
+        versions.insert(1, ("change", {n: block_ell._LIBS[n] for n in AB_LIBS}))
+        phase_ab(kt, block_ell, versions, args.rounds)
+    else:
+        from keynet_tpu_torch import bench_kernels as bk
+        card, peaks = bk.card_peaks(name)
+        log("[build] device %s (%d visible); bounds use %s data-sheet rates %s"
+            % (name, torch.cuda.device_count(), card, json.dumps(peaks)))
+        phase_parity(block_ell)
+        paths, launches = phase_main_allconv(kt, block_ell)
+        vgg_paths, vgg_launches = phase_main_vgg(kt, block_ell)
+        paths.update(vgg_paths)
+        bench_launches = phase_bench(block_ell, bk)
+        total = {n: launches[n] + vgg_launches[n] + bench_launches[n]
+                 for n in block_ell.ENTRIES}
+        log("[main] launches by path: %s" % json.dumps(
+            {"slice 1": launches, "slice 2 (VGG)": vgg_launches,
+             "slice 3 (bench)": bench_launches}))
+        rows = phase_kernels(block_ell, bk, paths, total, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))
     print(smi)
-    print(json.dumps({"kernels": rows}))
+    if rows is not None:
+        print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -10,148 +10,107 @@
 // many slots one MXU dot fuses; neither has a meaning here, so all three
 // launch the one kernel below.
 //
-// What bounds it on this card.  Per image a non-zero slot costs 2*TM*TN
-// FLOPs; the bytes are the unique tiles (read once at best), x and the f32
-// output.  For the keyed AllConvNet conv1 core (6,879 non-zero slots of
-// 128x128, 2,981 unique f32 tiles = 195 MB) that is 225 MFLOP per image
-// against 195 MB + 12.8 KB + 394 KB per image: at the H100 SXM data-sheet
-// rates (67 TFLOP/s f32 without tensor cores, 3.35 TB/s) the kernel is
-// memory-bound below B ~ 18 and compute-bound above.  f32 tiles must stay
-// IEEE (the exact keyed == source contract), so the f32 rate without tensor
-// cores is the ceiling; bf16 tiles are converted to f32 in shared memory and
-// take the same FMA path.
+// What bounds it on this card.  Per row a non-zero slot costs 2*TM*TN FLOPs;
+// the least bytes are the distinct tiles once, x and the f32 output.  f32
+// tiles must stay IEEE (the keyed == source contract), so the ceiling is the
+// f32 FMA rate without tensor cores (67 TFLOP/s on the H100 SXM data sheet)
+// or 3.35 TB/s.  With few rows (the head and tail row-blocks of the VGG
+// periodic cores at B = 1: one live row) each staged tile element feeds a
+// handful of FMAs and the tile bytes bound it; at AllConvNet conv1, B = 64,
+// the FMAs do (~0.2 ms).  The earlier kernel ran a 64-row tile whatever B
+// was (at B = 1, 63 of 64 rows were padding) with synchronous loads that
+// were transposed by scalar stores and overlapped no FMA.
 //
-// What the design does about it.  The grid is (batch tile, 128-wide output
-// chunk of a row-block).  Each block owns out[b0:b0+BT, c0:c0+128] in
-// registers (a 64 x 128 register tile, 4 x 8 per thread), walks the
-// row-block's KB slots, skips a slot whose tile id is 0 (its tile is zeros),
-// and for every other slot stages the x block and the tile through shared
-// memory BK columns at a time.  Each staged element feeds BT (tile) or 128
-// (x) FMAs, which keeps the loop on the FMA pipes rather than on memory once
-// B is past the crossover.  The output is written once, with no atomics, so
-// results are run-to-run deterministic.  Batch tiles sit on grid.x, so the
-// blocks resident together share one row-block's tiles in L2.  No TMA, wgmma
-// or pipelining yet: a simple kernel that is right comes first.
+// What the design does about it.  block_ell_core.cuh: the row tile BT in
+// {8, 16, 32, 64, 128} is the least that holds B (capped at 128; the wrapper
+// chooses it, ops/block_ell.launch_plan), so the padded FMAs follow B; tile
+// and x panels stream through a cp.async ring across slot boundaries, so the
+// next slot's tile arrives while this slot's FMAs run; reads out of shared
+// memory are 16 bytes and free of bank conflicts; 8 x 8 accumulators a
+// thread.  The grid is (ceil(B / BT), 128-wide output chunks); batch tiles
+// of one chunk sit next to each other on grid.x and share its tiles in L2.
+// A block walks its row-block's KB slots and skips a slot whose tile id is 0
+// (its tile is zeros).  The output is written once, with no atomics, so
+// results are run-to-run deterministic.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "block_ell_core.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // output columns per block (tile rows)
-constexpr int BK = 16;   // contraction columns staged per iteration
-constexpr int BT = 64;   // batch rows per block
-constexpr int NT = 256;  // threads per block, 16 x 16
+using namespace bc;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) slot_walk_kernel(
+template <class C, typename T>
+__global__ void __launch_bounds__(C::NT, 1) slot_walk_kernel(
     const T* __restrict__ x, const T* __restrict__ tiles,
     const int* __restrict__ tile_ids, const int* __restrict__ col_blk,
     float* __restrict__ out, int B, int n_cols, int n_rb, int KB, int TM,
     int TN, int n_out) {
-  constexpr int RB = BT / 16;  // batch rows per thread
-  __shared__ __align__(16) float xs[BK][BT + 4];
-  __shared__ __align__(16) float ts[BK][BM + 4];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int b0 = blockIdx.x * BT;
+  const int g = tid % C::GT, kg = tid / C::GT;
+  const int tx = g % 16, r = g / 16;
+  const int b0 = blockIdx.x * C::BT;
   const int chunk = blockIdx.y;
   const int per_rb = TM / BM;
-  const int r = chunk / per_rb;           // row-block
+  const int rb = chunk / per_rb;          // row-block
   const int m0 = (chunk % per_rb) * BM;   // first tile row of this chunk
   const int c0 = chunk * BM;              // first output column
 
-  float acc[RB][8];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < RB; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  if (r < n_rb) {
-    const int* ids = tile_ids + (size_t)r * KB;
-    const int* cbs = col_blk + (size_t)r * KB;
-    for (int k = 0; k < KB; ++k) {
-      const int t = ids[k];
-      if (t <= 0) continue;  // the zero tile
-      const T* xp = x + (size_t)cbs[k] * TN;
-      const T* tp = tiles + ((size_t)t * TM + m0) * TN;
-      for (int kc = 0; kc < TN; kc += BK) {
-        // x block: BT rows x BK cols, stored transposed xs[kk][b]
-        for (int i = tid; i < BT * (BK / 4); i += NT) {
-          const int b = i / (BK / 4), q = (i % (BK / 4)) * 4;
-          const float4 v = (b0 + b < B)
-              ? load4(xp + (size_t)(b0 + b) * n_cols + kc + q)
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-          xs[q + 0][b] = v.x; xs[q + 1][b] = v.y;
-          xs[q + 2][b] = v.z; xs[q + 3][b] = v.w;
-        }
-        // tile: BM rows x BK cols, stored transposed ts[kk][m]
-        for (int i = tid; i < BM * (BK / 4); i += NT) {
-          const int m = i / (BK / 4), q = (i % (BK / 4)) * 4;
-          const float4 v = load4(tp + (size_t)m * TN + kc + q);
-          ts[q + 0][m] = v.x; ts[q + 1][m] = v.y;
-          ts[q + 2][m] = v.z; ts[q + 3][m] = v.w;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[RB], w[8];
-#pragma unroll
-          for (int i = 0; i < RB; i += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(&xs[kk][ty * RB + i]);
-            a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-          }
-          const float4 w0 = *reinterpret_cast<const float4*>(&ts[kk][tx * 4]);
-          const float4 w1 = *reinterpret_cast<const float4*>(&ts[kk][64 + tx * 4]);
-          w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
-          w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
-#pragma unroll
-          for (int i = 0; i < RB; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-    }
-  }
+  if (rb < n_rb) {
+    const int* ids = tile_ids + (size_t)rb * KB;
+    const int* cbs = col_blk + (size_t)rb * KB;
+    const int per_slot = TN / C::BK;
+    int nz = 0;
+    for (int k = 0; k < KB; ++k) nz += ids[k] > 0;
+    const int valid = min(B - b0, C::BT);
+    const T* xrow = x + (size_t)b0 * n_cols;
 
-#pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    const int b = b0 + ty * RB + i;
-    if (b >= B) continue;
-    float* o = out + (size_t)b * n_out;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c < n_out) o[c] = acc[i][j];
-      const int c2 = c0 + 64 + tx * 4 + j;
-      if (c2 < n_out) o[c2] = acc[i][4 + j];
-    }
+    // producer cursor: slot pk (non-zero), column chunk pc of the next step
+    int pk = 0, pc = 0;
+    while (pk < KB && ids[pk] <= 0) ++pk;
+    run_ring<C>(smem, nz * per_slot, tid, tx, r, kg, acc, [&](T* st) {
+      const int col = pc * C::BK;
+      stage_tile<C>(st + C::X, tiles + ((size_t)ids[pk] * TM + m0) * TN + col, (size_t)TN, tid);
+      const T* xs = xrow + (size_t)cbs[pk] * TN + col;
+      stage_x<C>(st, xs, [&](int row) -> long long {
+        return row < valid ? (long long)row * n_cols : -1;
+      }, tid);
+      if (++pc == per_slot) {
+        pc = 0;
+        do ++pk; while (pk < KB && ids[pk] <= 0);
+      }
+    });
   }
+  fold_and_store<C>(acc, smem_raw, tid, n_out - c0, [&](int row) -> float* {
+    return b0 + row < B ? out + (size_t)(b0 + row) * n_out + c0 : nullptr;
+  });
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* tiles, const int* ids,
                    const int* cols, float* out, int B, int n_cols, int n_rb,
-                   int KB, int TM, int TN, int n_out, cudaStream_t stream) {
-  const dim3 grid((B + BT - 1) / BT, (n_out + BM - 1) / BM);
-  slot_walk_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(tiles), ids, cols, out,
-      B, n_cols, n_rb, KB, TM, TN, n_out);
-  return cudaGetLastError();
+                   int KB, int TM, int TN, int n_out, int BT, size_t bytes,
+                   cudaStream_t stream) {
+  return with_tile<T>(BT, [&](auto c) {
+    using C = decltype(c);
+    if (bytes < ring_smem<C>()) return cudaErrorInvalidValue;
+    static size_t allowed = 48 * 1024;
+    cudaError_t err = allow_smem_once(slot_walk_kernel<C, T>, bytes, allowed);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + C::BT - 1) / C::BT, (n_out + BM - 1) / BM);
+    slot_walk_kernel<C, T><<<grid, C::NT, bytes, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(tiles), ids, cols, out,
+        B, n_cols, n_rb, KB, TM, TN, n_out);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -160,21 +119,25 @@ extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // x: (B, n_cols) and tiles: (n_uniq, TM, TN) in f32 (bf16 = 0) or bf16
-// (bf16 = 1); tile_ids/col_blk: (n_rb, KB) int32; out: (B, n_out) f32.
-// TM and TN are multiples of 128; all arrays contiguous.
+// (bf16 = 1), both 16-byte aligned; tile_ids/col_blk: (n_rb, KB) int32;
+// out: (B, n_out) f32.  TM and TN are multiples of 128; all arrays
+// contiguous.  BT (8, 16, 32, 64 or 128) is the row tile and smem the
+// dynamic shared memory of a block, as ops/block_ell.launch_plan chooses
+// them; fewer bytes than BT's layout needs are refused.
 int block_ell_slot_walk(const void* x, const void* tiles, const void* tile_ids,
                         const void* col_blk, void* out, int B, int n_cols,
                         int n_rb, int KB, int TM, int TN, int n_out, int bf16,
-                        void* stream) {
-  if (TM % BM != 0 || TN % BK != 0 || B <= 0 || n_out <= 0)
+                        int BT, int smem, void* stream) {
+  if (TM % BM != 0 || TN % 128 != 0 || B <= 0 || n_out <= 0 || smem <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* ids = static_cast<const int*>(tile_ids);
   const int* cols = static_cast<const int*>(col_blk);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16
-      ? launch<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, s)
-      : launch<float>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, s);
+      ? launch<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, BT,
+                              smem, s)
+      : launch<float>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, BT, smem, s);
   return static_cast<int>(err);
 }
 

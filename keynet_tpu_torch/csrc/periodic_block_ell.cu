@@ -11,159 +11,145 @@
 // TPU kernel skips it (:540).
 //
 // What bounds it on this card.  A period row's KB tiles serve all R reps,
-// so the least traffic is one read of the period's tile set (P*KB tiles)
-// plus x and the f32 output; the work is 2*TM*TN FLOPs per non-zero slot,
-// rep and image.  For the keyed VGG-16 conv1_1 core of the Givens recipe
-// (P = 784, KB = 19, R = 31) the period set is ~1 GB of f32 tiles: at the
-// H100 SXM data-sheet rates (3.35 TB/s, 67 TFLOP/s f32 without tensor
-// cores) B = 1 is bound by bytes (~0.3 ms) and B >= 8 by operations.  f32
-// tiles stay IEEE (the exact keyed == source contract), so the FMA pipes
-// are the ceiling; bf16 tiles are widened in shared memory.
+// so the least traffic is one read of the period's tile set plus x and the
+// f32 output; the work is 2*TM*TN FLOPs per non-zero slot, rep and image.
+// For the keyed VGG-16 conv1_2 core of the Givens recipe (P = 784, KB = 19,
+// R = 31) that is ~0.22 ms of f32 FMAs at B = 1 and ~7 ms at B = 32 at the
+// H100 SXM data-sheet rate (67 TFLOP/s without tensor cores), above the
+// bytes of the tiles: operations bound it.  f32 tiles stay IEEE (the keyed
+// == source contract), so the FMA pipes are the ceiling.  The earlier
+// kernel ran a 64-row tile of (rep, image) pairs whatever R*B was (31 live
+// rows of 64 at B = 1, 7 at conv3_x), loaded its panels synchronously with
+// transposing scalar stores, and reached ~37% of the FMA rate at B = 32.
 //
-// What the design does about it.  On the TPU x sits whole in VMEM and a
-// group's tiles stay resident over the reps.  Here x does not fit shared
-// memory (conv1_1's padded x is 0.66 MB an image), but it fits L2; the
-// reuse kept is a tile across the reps.  A block owns one period row rho,
-// one 128-wide chunk of its TM output columns, and 64 consecutive
-// (rep, image) pairs q = j*B + b, so the rep chunk and the batch tile come
-// from B and R (B = 1, R = 31: one block holds every rep; B = 32: two reps
-// a block).  For each slot k it stages tiles[tile_ids[s+rho, k]] through
-// shared memory 16 columns at a time, once, and applies it to the x block
-// that each of its 64 pairs picks through col_blk[s+rho+j*P, k]: the
-// 64 x 128 register tile of block_ell.cu, with rows gathered per rep.
-// Blocks of one period row sit next to each other on grid.x, so their
-// common tiles are read from L2.  Each block writes its outputs once, with
-// no atomics, so results are run-to-run deterministic.  No TMA, wgmma or
-// pipelining yet: a simple kernel that is right comes first.
+// What the design does about it.  block_ell_core.cuh: a block owns one
+// period row rho, one 128-wide chunk of its TM columns and BT consecutive
+// (rep, image) pairs q = j*B + b, BT in {8, ..., 128} the least that holds
+// R*B (capped at 128; ops/block_ell.launch_plan chooses it), so conv1_2 at
+// B = 1 runs a 32-row tile and conv3_x (R = 7) an 8-row one.  Each pair row
+// reads its own x block at a slot, col_blk[s+rho+j*P, k]: those offsets are
+// computed one non-zero slot ahead into shared memory (two buffers), so the
+// gather of the next slot's x panels and its tile panels are in the cp.async
+// ring while this slot multiplies.  8 x 8 accumulators a thread, 16-byte
+// conflict-free reads out of shared memory.  Blocks of one period row sit
+// next to each other on grid.x, so the tiles they share come from L2.  Each
+// output is written once, with no atomics: results are run-to-run
+// deterministic.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "block_ell_core.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // output columns per block (tile rows)
-constexpr int BK = 16;   // contraction columns staged per iteration
-constexpr int BT = 64;   // (rep, image) rows per block
-constexpr int NT = 256;  // threads per block, 16 x 16
+using namespace bc;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+template <class C>
+__host__ __device__ constexpr size_t xoff_bytes() {
+  return 2 * C::BT * sizeof(long long);  // two slots' row offsets
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) periodic_kernel(
+template <class C, typename T>
+__global__ void __launch_bounds__(C::NT, 1) periodic_kernel(
     const T* __restrict__ x, const T* __restrict__ tiles,
     const int* __restrict__ tile_ids, const int* __restrict__ col_blk,
     float* __restrict__ out, int B, int n_cols, int KB, int TM, int TN,
     int s, int P, int R) {
-  constexpr int RB = BT / 16;  // rows per thread
-  __shared__ __align__(16) float xs[BK][BT + 4];
-  __shared__ __align__(16) float ts[BK][BM + 4];
-  __shared__ long long xoff[BT];  // row's x offset at this slot, -1 = none
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* xoff = reinterpret_cast<long long*>(smem_raw);  // [2][BT], -1 = none
+  unsigned char* ring = smem_raw + xoff_bytes<C>();
+  T* smem = reinterpret_cast<T*>(ring);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long q0 = (long long)blockIdx.x * BT;  // first (rep, image) pair
+  const int g = tid % C::GT, kg = tid / C::GT;
+  const int tx = g % 16, r = g / 16;
+  const long long q0 = (long long)blockIdx.x * C::BT;  // first (rep, image) pair
   const long long n_pairs = (long long)R * B;
   const int per_row = TM / BM;
-  const int rho = blockIdx.y / per_row;             // period row
-  const int m0 = (blockIdx.y % per_row) * BM;       // first tile row of the chunk
+  const int rho = blockIdx.y / per_row;               // period row
+  const int m0 = (blockIdx.y % per_row) * BM;         // first tile row of the chunk
 
-  float acc[RB][8];
+  // thread tid < BT owns pair row tid's offsets: its image's x row and its
+  // rep's column-block row
+  long long xrow = -1;
+  const int* cbrow = col_blk;
+  if (tid < C::BT && q0 + tid < n_pairs) {
+    const long long q = q0 + tid;
+    const int j = (int)(q / B), b = (int)(q % B);
+    xrow = (long long)b * n_cols;
+    cbrow = col_blk + ((size_t)s + rho + (size_t)j * P) * KB;
+  }
+  const int* ids = tile_ids + (size_t)(s + rho) * KB;
+  auto next_nz = [&](int k) {
+    do ++k; while (k < KB && ids[k] <= 0);
+    return k;
+  };
+  auto fill = [&](int buf, int k) {  // row offsets of slot k into buffer buf
+    if (tid < C::BT && k < KB)
+      xoff[buf * C::BT + tid] = xrow >= 0 ? xrow + (long long)cbrow[k] * TN : -1;
+  };
+
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < RB; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const int* ids = tile_ids + (size_t)(s + rho) * KB;
-  for (int k = 0; k < KB; ++k) {
-    const int t = ids[k];
-    if (t <= 0) continue;  // the zero tile (uniform across the block)
-    // the trailing __syncthreads of the previous slot ended every read of xoff
-    if (tid < BT) {
-      const long long q = q0 + tid;
-      long long o = -1;
-      if (q < n_pairs) {
-        const int j = (int)(q / B), b = (int)(q % B);
-        const int cb = col_blk[((size_t)s + rho + (size_t)j * P) * KB + k];
-        o = (long long)b * n_cols + (long long)cb * TN;
-      }
-      xoff[tid] = o;
-    }
-    __syncthreads();
-    const T* tp = tiles + ((size_t)t * TM + m0) * TN;
-    for (int kc = 0; kc < TN; kc += BK) {
-      // x blocks: BT rows x BK cols, stored transposed xs[kk][row]
-      for (int i = tid; i < BT * (BK / 4); i += NT) {
-        const int r = i / (BK / 4), qq = (i % (BK / 4)) * 4;
-        const long long o = xoff[r];
-        const float4 v = (o >= 0) ? load4(x + o + kc + qq)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-        xs[qq + 0][r] = v.x; xs[qq + 1][r] = v.y;
-        xs[qq + 2][r] = v.z; xs[qq + 3][r] = v.w;
-      }
-      // tile: BM rows x BK cols, stored transposed ts[kk][m]
-      for (int i = tid; i < BM * (BK / 4); i += NT) {
-        const int m = i / (BK / 4), qq = (i % (BK / 4)) * 4;
-        const float4 v = load4(tp + (size_t)m * TN + kc + qq);
-        ts[qq + 0][m] = v.x; ts[qq + 1][m] = v.y;
-        ts[qq + 2][m] = v.z; ts[qq + 3][m] = v.w;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[RB], w[8];
-#pragma unroll
-        for (int i = 0; i < RB; i += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(&xs[kk][ty * RB + i]);
-          a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-        }
-        const float4 w0 = *reinterpret_cast<const float4*>(&ts[kk][tx * 4]);
-        const float4 w1 = *reinterpret_cast<const float4*>(&ts[kk][64 + tx * 4]);
-        w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
-        w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
-#pragma unroll
-        for (int i = 0; i < RB; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
+  int nz = 0;
+  for (int k = 0; k < KB; ++k) nz += ids[k] > 0;
+  const int per_slot = TN / C::BK;  // steps a slot: >= STAGES - 1 (below)
+  static_assert(128 / C::BK >= STAGES - 1, "a 128-wide slot has STAGES - 1 steps");
 
-  // row (rep j, image b) of this block -> out[b, (j*P + rho)*TM + m0 + c]
+  // producer cursor: slot pk (its n-th non-zero slot, offsets in buffer
+  // n & 1), column chunk pc of the next step.  The first step of slot n
+  // (n >= 1) fills slot n + 1's offsets into the other buffer.  Since
+  // per_slot >= STAGES - 1, that step is loaded in the ring's main loop,
+  // behind a __syncthreads that ended every read of slot n - 1's offsets
+  // (the buffer it overwrites), and slot n + 1's first step comes per_slot
+  // steps, and as many barriers, later.  Slots 0 and 1 are filled first.
+  int pk = next_nz(-1), pc = 0, n = 0;
+  fill(0, pk);
+  fill(1, next_nz(pk));
+  __syncthreads();
+  run_ring<C>(smem, nz * per_slot, tid, tx, r, kg, acc, [&](T* st) {
+    if (pc == 0 && n > 0) fill((n + 1) & 1, next_nz(pk));
+    const int col = pc * C::BK;
+    stage_tile<C>(st + C::X, tiles + ((size_t)ids[pk] * TM + m0) * TN + col, (size_t)TN, tid);
+    const long long* off = xoff + (n & 1) * C::BT;
+    stage_x<C>(st, x + col, [&](int row) { return off[row]; }, tid);
+    if (++pc == per_slot) {
+      pc = 0;
+      pk = next_nz(pk);
+      ++n;
+    }
+  });
+
+  // pair row q (rep j, image b) -> out[b, (j*P + rho)*TM + m0 + c]
   const size_t n_out = (size_t)P * R * TM;
-#pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    const long long q = q0 + ty * RB + i;
-    if (q >= n_pairs) continue;
+  fold_and_store<C>(acc, ring, tid, BM, [&](int row) -> float* {
+    const long long q = q0 + row;
+    if (q >= n_pairs) return nullptr;
     const int j = (int)(q / B), b = (int)(q % B);
-    float* o = out + (size_t)b * n_out + ((size_t)j * P + rho) * TM + m0;
-    *reinterpret_cast<float4*>(o + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(o + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
+    return out + (size_t)b * n_out + ((size_t)j * P + rho) * TM + m0;
+  });
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* tiles, const int* ids,
                    const int* cols, float* out, int B, int n_cols, int KB,
-                   int TM, int TN, int s, int P, int R, cudaStream_t stream) {
-  const long long n_pairs = (long long)R * B;
-  const dim3 grid((unsigned)((n_pairs + BT - 1) / BT), (unsigned)(P * (TM / BM)));
-  periodic_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(tiles), ids, cols, out,
-      B, n_cols, KB, TM, TN, s, P, R);
-  return cudaGetLastError();
+                   int TM, int TN, int s, int P, int R, int BT, size_t bytes,
+                   cudaStream_t stream) {
+  return with_tile<T>(BT, [&](auto c) {
+    using C = decltype(c);
+    if (bytes < xoff_bytes<C>() + ring_smem<C>()) return cudaErrorInvalidValue;
+    static size_t allowed = 48 * 1024;
+    cudaError_t err = allow_smem_once(periodic_kernel<C, T>, bytes, allowed);
+    if (err != cudaSuccess) return err;
+    const long long n_pairs = (long long)R * B;
+    const dim3 grid((unsigned)((n_pairs + C::BT - 1) / C::BT), (unsigned)(P * (TM / BM)));
+    periodic_kernel<C, T><<<grid, C::NT, bytes, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(tiles), ids, cols, out,
+        B, n_cols, KB, TM, TN, s, P, R);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -172,14 +158,17 @@ extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // x: (B, n_cols) and tiles: (n_uniq, TM, TN) in f32 (bf16 = 0) or bf16
-// (bf16 = 1); tile_ids/col_blk: (n_rb, KB) int32 with s + P*R <= n_rb;
-// out: (B, P*R*TM) f32.  TM and TN are multiples of 128; all arrays
-// contiguous.
+// (bf16 = 1), both 16-byte aligned; tile_ids/col_blk: (n_rb, KB) int32 with
+// s + P*R <= n_rb; out: (B, P*R*TM) f32.  TM and TN are multiples of 128;
+// all arrays contiguous.  BT (8, 16, 32, 64 or 128) is the row tile over
+// the R*B (rep, image) pairs and smem the dynamic shared memory of a block,
+// as ops/block_ell.launch_plan chooses them; fewer bytes than BT's layout
+// needs are refused.
 int periodic_block_ell(const void* x, const void* tiles, const void* tile_ids,
                        const void* col_blk, void* out, int B, int n_cols,
                        int KB, int TM, int TN, int s, int P, int R, int bf16,
-                       void* stream) {
-  if (TM % BM != 0 || TN % BK != 0 || B <= 0 || P <= 0 || R <= 0 || s < 0 ||
+                       int BT, int smem, void* stream) {
+  if (TM % BM != 0 || TN % 128 != 0 || B <= 0 || P <= 0 || R <= 0 || s < 0 || smem <= 0 ||
       (long long)P * (TM / BM) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* ids = static_cast<const int*>(tile_ids);
@@ -187,8 +176,9 @@ int periodic_block_ell(const void* x, const void* tiles, const void* tile_ids,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16
-      ? launch<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, st)
-      : launch<float>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, st);
+      ? launch<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, BT, smem,
+                              st)
+      : launch<float>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, BT, smem, st);
   return static_cast<int>(err);
 }
 

@@ -38,7 +38,9 @@ On a CPU tensor each entry computes its plain version (``block_ell_plain``,
 ``periodic_block_ell_plain``); on a CUDA tensor it launches its kernel or
 raises.  ``LAUNCHES[name]`` counts kernel launches only.  The kernels are
 compiled with nvcc at first use into build/kernels/ (one nvcc per source,
-started together) and bound with ctypes.
+started together) and bound with ctypes.  The slot walk and the periodic
+kernel are launched with the row tile and shared memory that ``launch_plan``
+chooses (csrc/block_ell_core.cuh); it checks their grid beforehand.
 """
 
 import ctypes
@@ -65,11 +67,19 @@ SOURCES = {"block_ell": os.path.join(_CSRC, "block_ell.cu"),
            "block_ell_grid": os.path.join(_CSRC, "block_ell_grid.cu"),
            "periodic_block_ell": os.path.join(_CSRC, "periodic_block_ell.cu")}
 # library name -> (launch function, number of int arguments)
-_LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 8), "block_ell_xres": ("block_ell_xres", 8),
+_LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 10), "block_ell_xres": ("block_ell_xres", 8),
               "block_ell_grid": ("block_ell_grid", 8),
-              "periodic_block_ell": ("periodic_block_ell", 9)}
+              "periodic_block_ell": ("periodic_block_ell", 11)}
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 _SMEM_MAX = 232448  # shared memory one block may use on sm_90
+_GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
+
+# The row tiles instantiated in csrc/block_ell_core.cuh -> threads a block
+# (16 column threads x BT/8 row groups x k groups), and the ring's depth.
+TILE_THREADS = {8: 64, 16: 128, 32: 128, 64: 128, 128: 256}
+STAGES = 3
+_PANEL_BYTES = 128  # contraction bytes one ring step stages (32 f32, 64 bf16)
+_BM = 128           # output columns a block owns
 _LIBS = {}
 _LOCK = threading.Lock()
 
@@ -86,6 +96,38 @@ def route(KB):
     if KB >= 8:
         return block_ell_matmul_xresd
     return block_ell_matmul_xres2
+
+
+def launch_plan(rows, cols, TM, TN, dtype, periodic=False):
+    """How the slot walk (``periodic=False``; rows = B, cols = n_out) or the
+    periodic kernel (rows = R·B (rep, image) pairs, cols = P·TM) is launched:
+    the row tile BT, the least of TILE_THREADS's tiles that holds ``rows``
+    (capped at 128), the ring's STAGES, the dynamic shared memory of one
+    block (csrc/block_ell_core.cuh: STAGES x (BT + 128) panel rows of 128
+    bytes + 16, or the k groups' fold if larger, + the periodic kernel's two
+    slots of row offsets; the launch refuses fewer bytes than the layout
+    needs) and the grid (ceil(rows / BT), ceil(cols / 128)).  Raises
+    ValueError on a plan the card cannot launch."""
+    rows, cols = int(rows), int(cols)
+    if rows < 1 or cols < 1 or TM % _BM or TN % 128:
+        raise ValueError("launch_plan: rows %d, cols %d, TM %d, TN %d" % (rows, cols, TM, TN))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if itemsize not in (2, 4):
+        raise TypeError("launch_plan: tiles must be float32 or bfloat16, got %s" % dtype)
+    BT = next((t for t in sorted(TILE_THREADS) if t >= rows), max(TILE_THREADS))
+    threads = TILE_THREADS[BT]
+    k_groups = threads // (16 * (BT // 8))
+    ring = STAGES * (BT + _BM) * (_PANEL_BYTES + 16)
+    fold = (k_groups - 1) * (threads // k_groups) * 64 * 4
+    smem = max(ring, fold) + (2 * BT * 8 if periodic else 0)
+    grid = (-(-rows // BT), -(-cols // _BM))
+    if smem > _SMEM_MAX:
+        raise ValueError("launch_plan: %d bytes of shared memory a block, the card "
+                         "allows %d" % (smem, _SMEM_MAX))
+    if grid[0] > _GRID_X_MAX or grid[1] > _GRID_Y_MAX:
+        raise ValueError("launch_plan: grid %s exceeds (%d, %d)" % (grid, _GRID_X_MAX,
+                                                                   _GRID_Y_MAX))
+    return dict(BT=BT, stages=STAGES, smem=smem, grid=grid)
 
 
 # ------------------------------------------------------------------ plain
@@ -157,9 +199,9 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the Block-ELL CUDA kernel needs the CUDA toolkit")
 
 
-def _headers():
-    """The shared headers in csrc/ (part of every source's build digest)."""
-    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+def _headers(csrc):
+    """The shared headers in csrc (part of every source's build digest)."""
+    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh"))
 
 
 def _bind(name, lib):
@@ -175,17 +217,21 @@ def _bind(name, lib):
     return lib
 
 
-def build(verbose=False):
-    """Compile every CUDA source for sm_90a (once per source content, one
+def build(verbose=False, src_dir=None, names=None):
+    """Compile the CUDA sources for sm_90a (once per source content, one
     nvcc process per source, all started together) and load them; returns
-    {library name: ctypes library}."""
+    {library name: ctypes library}.  By default every source of csrc/, kept
+    for the entries; with ``src_dir`` the libraries ``names`` built from
+    another csrc directory (an earlier version, to compare), returned only."""
+    csrc = _CSRC if src_dir is None else src_dir
     with _LOCK:
         jobs = []
-        for name, src in SOURCES.items():
-            if name in _LIBS:
+        for name in names or SOURCES:
+            if src_dir is None and name in _LIBS:
                 continue
+            src = os.path.join(csrc, name + ".cu")
             h = hashlib.sha1()
-            for path in [src] + _headers():
+            for path in [src] + _headers(csrc):
                 with open(path, "rb") as f:
                     h.update(f.read())
             digest = h.hexdigest()[:12]
@@ -209,16 +255,19 @@ def build(verbose=False):
             except subprocess.TimeoutExpired:
                 proc.kill()
                 _, err = proc.communicate()
+            src = os.path.join(csrc, name + ".cu")
             if proc.returncode != 0:
-                failed.append("nvcc %s failed (%d):\n%s" % (name, proc.returncode, err))
+                failed.append("nvcc %s failed (%d):\n%s" % (src, proc.returncode, err))
                 continue
             if verbose:
-                print(err.strip())
+                print("[build] %s:\n%s" % (src, err.strip()))
             os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
-        for name, so, _, _ in jobs:
-            _LIBS[name] = _bind(name, ctypes.CDLL(so))
+        libs = {name: _bind(name, ctypes.CDLL(so)) for name, so, _, _ in jobs}
+        if src_dir is not None:
+            return libs
+        _LIBS.update(libs)
         return dict(_LIBS)
 
 
@@ -280,18 +329,23 @@ def _slot_walk(name, lib_name, x_padded, tiles, tile_ids, col_blk, n_out_padded,
     _, TM, TN = tiles.shape
     n_rb, KB = ids.shape
     B, n_cols = x.shape
-    if -(-n_out // 128) > 65535:
-        raise ValueError("%s: n_out_padded %d exceeds the grid" % (name, n_out))
-    if grid and (128 + 64) * (TN * tiles.element_size() + 16) > _SMEM_MAX:
-        raise ValueError("%s: a %d-wide tile slice does not fit a block's shared "
-                         "memory" % (name, TN))
     out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
     if B == 0 or n_out == 0:
         return out
+    if lib_name == "block_ell":
+        plan = launch_plan(B, n_out, TM, TN, tiles.dtype)
+        tile = (plan["BT"], plan["smem"])
+    else:
+        tile = ()
+        if -(-n_out // 128) > _GRID_Y_MAX:
+            raise ValueError("%s: n_out_padded %d exceeds the grid" % (name, n_out))
+        if grid and (128 + 64) * (TN * tiles.element_size() + 16) > _SMEM_MAX:
+            raise ValueError("%s: a %d-wide tile slice does not fit a block's shared "
+                             "memory" % (name, TN))
     _launched(name, lib_name, getattr(_lib(lib_name), _LAUNCH_FN[lib_name][0])(
         x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         out.data_ptr(), B, n_cols, n_rb, KB, TM, TN, n_out,
-        int(tiles.dtype == torch.bfloat16),
+        int(tiles.dtype == torch.bfloat16), *tile,
         torch.cuda.current_stream(x.device).cuda_stream))
     return out
 
@@ -350,14 +404,13 @@ def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):
     _, TM, TN = tiles.shape
     KB = ids.shape[1]
     B, n_cols = x.shape
-    if P * (TM // 128) > 65535 or -(-R * B // 64) > 2 ** 31 - 1:
-        raise ValueError("%s: P=%d, R=%d, B=%d exceed the grid" % (name, P, R, B))
     out = torch.empty((B, P * R * TM), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
+    plan = launch_plan(R * B, P * TM, TM, TN, tiles.dtype, periodic=True)
     _launched(name, "periodic_block_ell", _lib("periodic_block_ell").periodic_block_ell(
         x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         out.data_ptr(), B, n_cols, KB, TM, TN, s, P, R,
-        int(tiles.dtype == torch.bfloat16),
+        int(tiles.dtype == torch.bfloat16), plan["BT"], plan["smem"],
         torch.cuda.current_stream(x.device).cuda_stream))
     return out

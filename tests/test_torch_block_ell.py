@@ -3,7 +3,7 @@ the JAX package's Pallas entries run in interpret mode (as
 tests/test_operators.py runs them), values and output width, the port's
 routing, and the rule that without a card every entry point raises unless
 device='cpu' is given.  The CUDA kernels themselves run in chip_smoke.py
-and in the card-only tests at the end."""
+and in the card-only tests, tests/test_torch_card.py."""
 
 import numpy as np
 import pytest
@@ -136,6 +136,50 @@ def test_xresd_rejects_bad_depth(depth):
         block_ell.block_ell_matmul_xresd(x, tiles, ids, cols, 11 * TM, depth=depth)
 
 
+PLAN_ROWS = [1, 7, 8, 9, 31, 32, 33, 64, 65, 130, 992, 1024]
+
+
+@pytest.mark.parametrize("tm", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_launch_plan(rows, dtype, tm):
+    """launch_plan's row tile is the least instantiated tile that holds the
+    rows (capped at 128), its shared memory fits a block, its grid covers
+    every row and output column, and a plan that cannot fit raises."""
+    tiles = sorted(block_ell.TILE_THREADS)
+    n_out = 5 * tm
+    plan = block_ell.launch_plan(rows, n_out, tm, tm, dtype)
+    BT = plan["BT"]
+    assert BT in tiles
+    assert BT == (min(t for t in tiles if t >= rows) if rows <= tiles[-1] else tiles[-1])
+    assert plan["stages"] == block_ell.STAGES
+    assert 0 < plan["smem"] <= 232448
+    assert plan["grid"][0] * BT >= rows > (plan["grid"][0] - 1) * BT
+    assert plan["grid"][1] * 128 >= n_out > (plan["grid"][1] - 1) * 128
+    # the periodic kernel's plan adds its two slots of row offsets
+    per = block_ell.launch_plan(rows, n_out, tm, tm, dtype, periodic=True)
+    assert per["BT"] == BT and per["smem"] == plan["smem"] + 16 * BT
+    with pytest.raises(ValueError):        # more 128-column chunks than grid.y holds
+        block_ell.launch_plan(rows, 65536 * 128, tm, tm, dtype)
+    with pytest.raises(ValueError):        # more row tiles than grid.x holds
+        block_ell.launch_plan(2 ** 31 * 128, n_out, tm, tm, dtype)
+    with pytest.raises(ValueError):        # TM not a multiple of the 128-column chunk
+        block_ell.launch_plan(rows, n_out, tm + 64, tm, dtype)
+
+
+def test_launch_plan_smem_is_the_ring():
+    """Shared memory is the ring, STAGES x (BT + 128) panel rows of 128 + 16
+    bytes in either dtype (the k groups' fold fits inside it), and grows
+    with the row tile; TN does not change it."""
+    smem = [block_ell.launch_plan(BT, 128, 128, 128, torch.float32)["smem"]
+            for BT in sorted(block_ell.TILE_THREADS)]
+    assert smem == [block_ell.STAGES * (BT + 128) * 144 for BT in sorted(block_ell.TILE_THREADS)]
+    assert smem == sorted(smem)
+    for BT in block_ell.TILE_THREADS:
+        assert block_ell.launch_plan(BT, 128, 128, 512, torch.bfloat16)["smem"] == smem[
+            sorted(block_ell.TILE_THREADS).index(BT)]
+
+
 def _tiny_net():
     m = kt.models
     return m.Model([m.Conv2d("conv1", 1, 2, 3), m.ReLU("relu1"),
@@ -181,97 +225,3 @@ def test_entry_points_raise_without_card_unless_cpu(entry, tmp_path):
     with pytest.raises(RuntimeError):
         call(device="cuda")
     assert call(device="cpu") is not None
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """Needs the card: the CUDA kernel against its plain version (the same
-    check chip_smoke.py's parity phase runs)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
-    x, tiles, ids, cols = (torch.from_numpy(a).cuda() for a in _operands(CASES[2]))
-    ref = block_ell.block_ell_plain(x, tiles, ids, cols, 5 * TM)
-    for fn, kw in [(block_ell.block_ell_matmul, {}), (block_ell.block_ell_matmul_xres2, {}),
-                   (block_ell.block_ell_matmul_xresd, {"depth": 3}),
-                   (block_ell.block_ell_matmul_xresd, {"depth": 4}),
-                   (block_ell.block_ell_matmul_xres, {}), (block_ell.block_ell_matmul_grid, {})]:
-        y = fn(x, tiles, ids, cols, 5 * TM, **kw)
-        assert float((y - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["block_ell_matmul_xres", "block_ell_matmul_grid"])
-def test_staged_kernels_on_repeated_ids_and_wide_tiles(name):
-    """Needs the card: the xres and grid kernels against the plain version
-    in f32 and bf16 at TN = 256 and TM = 256, on rows whose consecutive
-    non-zero slots repeat a tile id (a, a, 0, a: the grid kernel keeps its
-    staged slice over the id-0 slot) and rows that end and start on one id."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
-    rng = np.random.default_rng(2)
-    fn = getattr(block_ell, name)
-    for B, n_rb, KB, n_uniq, n_cb, TM_, TN_ in ((5, 9, 6, 7, 5, 128, 256),
-                                               (130, 6, 5, 6, 4, 256, 128)):
-        tiles = rng.standard_normal((n_uniq, TM_, TN_)).astype(np.float32)
-        tiles[0] = 0.0
-        ids = rng.integers(1, n_uniq, size=(n_rb, KB)).astype(np.int32)
-        ids[::2, 1] = ids[::2, 0]
-        ids[::2, 2] = 0
-        ids[::2, 3] = ids[::2, 0]
-        ids[1:, 0] = ids[:-1, -1]            # row r+1 starts on row r's last id
-        cols = rng.integers(0, n_cb, size=(n_rb, KB)).astype(np.int32)
-        x = torch.from_numpy(rng.standard_normal((B, n_cb * TN_)).astype(np.float32)).cuda()
-        ids_d, cols_d = torch.from_numpy(ids).cuda(), torch.from_numpy(cols).cuda()
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
-            t = torch.from_numpy(tiles).cuda().to(dtype)
-            ref = block_ell.block_ell_plain(x, t, ids_d, cols_d, n_rb * TM_)
-            y = fn(x, t, ids_d, cols_d, n_rb * TM_)
-            torch.cuda.synchronize()
-            assert y.shape == ref.shape
-            assert float((y - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
-
-
-@pytest.mark.cuda
-def test_kernel_skips_zero_slots():
-    """Needs the card: a slot with tile id 0 adds nothing, even when the x
-    block it points at is not finite (the Pallas xres2/xresd kernels multiply
-    the zero tile into the step; ROADMAP Queue 3)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
-    x, tiles, ids, cols = (torch.from_numpy(a).cuda() for a in _operands(CASES[1]))
-    cols[:, 0] = 6                       # every row's first slot reads block 6 ...
-    ids[:, 0] = 0                        # ... through the zero tile
-    x[:, 6 * TN:] = float("inf")         # which no other slot reads
-    cols[:, 1:] = torch.remainder(cols[:, 1:], 6)
-    for fn, kw in ((block_ell.block_ell_matmul_xresd, {"depth": 4}),
-                   (block_ell.block_ell_matmul_xres, {}), (block_ell.block_ell_matmul_grid, {})):
-        y = fn(x, tiles, ids, cols, 13 * TM, **kw)
-        assert bool(torch.isfinite(y).all())
-
-
-@pytest.mark.cuda
-def test_periodic_kernel_matches_plain_on_card():
-    """Needs the card: the periodic CUDA kernel against its plain version
-    in f32 and bf16, with s > 0, P not a multiple of anything, B = 5, id-0
-    slots and an all-zero period row."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
-    rng = np.random.default_rng(1)
-    s, P, R, KB, n_uniq, n_cb, B = 2, 5, 7, 3, 9, 11, 5
-    n_rb = s + P * R + 1
-    tiles = rng.standard_normal((n_uniq, TM, TN)).astype(np.float32)
-    tiles[0] = 0.0
-    ids = rng.integers(0, n_uniq, size=(n_rb, KB)).astype(np.int32)
-    ids[s + 1] = 0                          # an all-zero period row
-    for j in range(1, R):
-        ids[s + j * P:s + (j + 1) * P] = ids[s:s + P]
-    cols = rng.integers(0, n_cb, size=(n_rb, KB)).astype(np.int32)
-    x = torch.from_numpy(rng.standard_normal((B, n_cb * TN)).astype(np.float32)).cuda()
-    ids, cols = torch.from_numpy(ids).cuda(), torch.from_numpy(cols).cuda()
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
-        t = torch.from_numpy(tiles).cuda().to(dtype)
-        ref = block_ell.periodic_block_ell_plain(x, t, ids, cols, s, P, R)
-        y = block_ell.periodic_block_ell_matvec(x, t, ids, cols, s, P, R)
-        torch.cuda.synchronize()
-        assert float((y - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
-        assert bool((y[:, TM:2 * TM] == 0).all())

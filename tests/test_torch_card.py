@@ -1,0 +1,159 @@
+"""Card-only tests of the port's CUDA kernels (marked ``cuda``; they skip
+without a card).  This file imports neither JAX nor keynet_tpu, so it also
+runs on a machine that has only the port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py
+
+Each kernel is held against its plain PyTorch version on the same seeded
+operands.  Tolerances: 1e-5·max(1, scale) in f32, where only the sum order
+differs, and 1e-4 in bf16, where both sides round the same inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+from keynet_tpu_torch.ops import block_ell
+
+TM = TN = 128
+
+# (B, n_rb, KB, n_uniq, n_cb): B not a multiple of 8, KB not a multiple of
+# the depth, n_rb not a multiple of 8
+CASES = [(1, 11, 7, 9, 6), (5, 13, 9, 12, 7), (130, 5, 3, 6, 4)]
+
+SLOT_WALK = [(block_ell.block_ell_matmul, {}), (block_ell.block_ell_matmul_xres2, {}),
+             (block_ell.block_ell_matmul_xresd, {"depth": 3}),
+             (block_ell.block_ell_matmul_xresd, {"depth": 4}),
+             (block_ell.block_ell_matmul_xres, {}), (block_ell.block_ell_matmul_grid, {})]
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
+
+
+def _operands(case, seed=0, tm=TM):
+    """Seeded Block-ELL operands with tm x tm tiles: id-0 slots, tile 0 all
+    zeros and an all-zero row."""
+    B, n_rb, KB, n_uniq, n_cb = case
+    rng = np.random.default_rng(seed)
+    tiles = rng.standard_normal((n_uniq, tm, tm)).astype(np.float32)
+    tiles[0] = 0.0                          # tile 0 is the zero tile
+    ids = rng.integers(0, n_uniq, size=(n_rb, KB)).astype(np.int32)  # id-0 slots
+    ids[n_rb // 2] = 0                      # an all-zero row
+    cols = rng.integers(0, n_cb, size=(n_rb, KB)).astype(np.int32)
+    x = rng.standard_normal((B, n_cb * tm)).astype(np.float32)
+    return x, tiles, ids, cols
+
+
+def _close(y, ref, tol):
+    assert y.shape == ref.shape
+    assert float((y - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 9, 16, 17, 32, 33, 64, 65, 130])
+def test_kernel_matches_plain_on_card(B):
+    """The slot-walk kernels against their plain version at batches on both
+    sides of every row tile of the slot walk (the same check chip_smoke.py's
+    parity phase runs), f32 and bf16, TM = TN = 128 and 256, with id-0 slots
+    and an all-zero row."""
+    _needs_card()
+    for tm in (128, 256):
+        x, tiles, ids, cols = (torch.from_numpy(a).cuda()
+                               for a in _operands((B, 5, 3, 6, 4), seed=B, tm=tm))
+        n_out = ids.shape[0] * tm
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+            t = tiles.to(dtype)
+            ref = block_ell.block_ell_plain(x, t, ids, cols, n_out)
+            for fn, kw in SLOT_WALK:
+                y = fn(x, t, ids, cols, n_out, **kw)
+                torch.cuda.synchronize()
+                _close(y, ref, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["block_ell_matmul_xres", "block_ell_matmul_grid"])
+def test_staged_kernels_on_repeated_ids_and_wide_tiles(name):
+    """The xres and grid kernels against the plain version in f32 and bf16
+    at TN = 256 and TM = 256, on rows whose consecutive non-zero slots repeat
+    a tile id (a, a, 0, a: the grid kernel keeps its staged slice over the
+    id-0 slot) and rows that end and start on one id."""
+    _needs_card()
+    rng = np.random.default_rng(2)
+    fn = getattr(block_ell, name)
+    for B, n_rb, KB, n_uniq, n_cb, TM_, TN_ in ((5, 9, 6, 7, 5, 128, 256),
+                                               (130, 6, 5, 6, 4, 256, 128)):
+        tiles = rng.standard_normal((n_uniq, TM_, TN_)).astype(np.float32)
+        tiles[0] = 0.0
+        ids = rng.integers(1, n_uniq, size=(n_rb, KB)).astype(np.int32)
+        ids[::2, 1] = ids[::2, 0]
+        ids[::2, 2] = 0
+        ids[::2, 3] = ids[::2, 0]
+        ids[1:, 0] = ids[:-1, -1]            # row r+1 starts on row r's last id
+        cols = rng.integers(0, n_cb, size=(n_rb, KB)).astype(np.int32)
+        x = torch.from_numpy(rng.standard_normal((B, n_cb * TN_)).astype(np.float32)).cuda()
+        ids_d, cols_d = torch.from_numpy(ids).cuda(), torch.from_numpy(cols).cuda()
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+            t = torch.from_numpy(tiles).cuda().to(dtype)
+            ref = block_ell.block_ell_plain(x, t, ids_d, cols_d, n_rb * TM_)
+            y = fn(x, t, ids_d, cols_d, n_rb * TM_)
+            torch.cuda.synchronize()
+            _close(y, ref, tol)
+
+
+@pytest.mark.cuda
+def test_kernel_skips_zero_slots():
+    """A slot with tile id 0 adds nothing, even when the x block it points
+    at is not finite (the Pallas xres2/xresd kernels multiply the zero tile
+    into the step; ROADMAP Queue 3): the slot-walk kernels and the periodic
+    kernel give finite outputs equal to the plain version on x with that
+    block zeroed."""
+    _needs_card()
+    x, tiles, ids, cols = (torch.from_numpy(a).cuda() for a in _operands(CASES[1]))
+    cols[:, 0] = 6                       # every row's first slot reads block 6 ...
+    ids[:, 0] = 0                        # ... through the zero tile
+    cols[:, 1:] = torch.remainder(cols[:, 1:], 6)   # which no other slot reads
+    x_zero = x.clone()
+    x_zero[:, 6 * TN:] = 0.0
+    x[:, 6 * TN:] = float("inf")
+    n_out = 13 * TM
+    for fn, kw in SLOT_WALK:
+        y = fn(x, tiles, ids, cols, n_out, **kw)
+        assert bool(torch.isfinite(y).all())
+        _close(y, block_ell.block_ell_plain(x_zero, tiles, ids, cols, y.shape[1]), 1e-5)
+    s, P, R = 1, 4, 3                    # rows [1, 13) repeat rows [1, 5)'s ids
+    for j in range(1, R):
+        ids[s + j * P:s + (j + 1) * P] = ids[s:s + P]
+    y = block_ell.periodic_block_ell_matvec(x, tiles, ids, cols, s, P, R)
+    assert bool(torch.isfinite(y).all())
+    _close(y, block_ell.periodic_block_ell_plain(x_zero, tiles, ids, cols, s, P, R), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B", [(1, 1), (8, 1), (3, 3), (8, 2), (17, 1), (31, 1),
+                                 (11, 3), (7, 5), (8, 8), (13, 5), (31, 5), (7, 20)])
+def test_periodic_kernel_matches_plain_on_card(R, B):
+    """The periodic CUDA kernel against its plain version in f32 and bf16,
+    with s > 0, P not a multiple of anything, id-0 slots and an all-zero
+    period row, at R·B on both sides of every row tile (1, 8 | 9, 16 | 17,
+    31 | 33, 35, 64 | 65, 155, 140)."""
+    _needs_card()
+    rng = np.random.default_rng(R * 100 + B)
+    s, P, KB, n_uniq, n_cb = 2, 5, 3, 9, 11
+    n_rb = s + P * R + 1
+    tiles = rng.standard_normal((n_uniq, TM, TN)).astype(np.float32)
+    tiles[0] = 0.0
+    ids = rng.integers(0, n_uniq, size=(n_rb, KB)).astype(np.int32)
+    ids[s + 1] = 0                          # an all-zero period row
+    for j in range(1, R):
+        ids[s + j * P:s + (j + 1) * P] = ids[s:s + P]
+    cols = rng.integers(0, n_cb, size=(n_rb, KB)).astype(np.int32)
+    x = torch.from_numpy(rng.standard_normal((B, n_cb * TN)).astype(np.float32)).cuda()
+    ids, cols = torch.from_numpy(ids).cuda(), torch.from_numpy(cols).cuda()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+        t = torch.from_numpy(tiles).cuda().to(dtype)
+        ref = block_ell.periodic_block_ell_plain(x, t, ids, cols, s, P, R)
+        y = block_ell.periodic_block_ell_matvec(x, t, ids, cols, s, P, R)
+        torch.cuda.synchronize()
+        _close(y, ref, tol)
+        assert bool((y[:, TM:2 * TM] == 0).all())

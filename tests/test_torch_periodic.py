@@ -75,6 +75,23 @@ def test_cpu_wrapper_uses_plain_version_and_does_not_count():
         block_ell.periodic_block_ell_matvec(x, tiles, ids, cols, s, P, R + 1)
 
 
+@pytest.mark.parametrize("R,B", [(1, 1), (8, 1), (3, 3), (31, 1), (11, 3), (8, 8), (13, 5),
+                                 (31, 32)])
+def test_periodic_launch_plan(R, B):
+    """The periodic kernel's plan tiles the R·B (rep, image) pairs with the
+    least instantiated row tile that holds them (capped at 128), one block
+    column per 128 columns of a period row's P·TM, and adds the two slots of
+    8-byte row offsets to the slot walk's shared memory."""
+    P, TM = 784, 128
+    tiles = sorted(block_ell.TILE_THREADS)
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = block_ell.launch_plan(R * B, P * TM, TM, 128, dtype, periodic=True)
+        assert plan["BT"] == min([t for t in tiles if t >= R * B] or [tiles[-1]])
+        assert plan["grid"] == (-(-R * B // plan["BT"]), P)
+        walk = block_ell.launch_plan(R * B, P * TM, TM, 128, dtype)
+        assert plan["smem"] == walk["smem"] + 16 * plan["BT"] <= 232448
+
+
 def test_non_cpu_tensor_never_falls_back():
     x = torch.empty((2, 256), device="meta")
     tiles = torch.empty((3, 128, 128), device="meta")
