@@ -20,8 +20,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
                the periodic kernel against its plain version (f32 and bf16,
                s = 0 and s > 0, P below 8 and P not a multiple of the 64-row
                tile, R in {1, 7, 31}, B in {1, 5, 32}, TM = 256, id-0 slots,
-               an all-zero period row); then id-0 slots that point at an
-               all-inf x block must add nothing, in every entry;
+               an all-zero period row); xres and grid also at TN = 512 (f32
+               and bf16), on runs of G > 1 row-blocks with n_rb not a
+               multiple of G, with a, 0, a runs and repeats across row
+               boundaries, at every row tile, the grid kernel's tile copies
+               held equal to the count its plan's walk gives; then id-0 slots
+               that point at an all-inf x block must add nothing, in every
+               entry;
   3. main path, slice 1 (launch counts set to 0 just before, read just
                after): StochasticKeynet AllConvNet (3x32x32, alpha=2,
                blocksize 8, seed 0, AllConvNet(seed=1)) at B=64 and B=1024,
@@ -54,24 +59,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
                routes to on this card, at the shape the JAX package routes
                it: AllConvNet conv1 at B=1024; xres and grid at the depth
                bench's operand at B=8), plus xres, grid and xresd at the
-               full-width AllConvNet conv1 core at B=64 and the depth-2
+               full-width AllConvNet conv1 core at B=64 and B=1024 (the
+               share of the operations bound each reaches) and the depth-2
                entry at that core, and the periodic kernel at the VGG core
                with the most period slots at B=1, 8 and 32 (at B=1 also
                with the shared memory of one block an SM), and the slot
-               walk on that core's head and tail rows: kernel, plain
-               version and library times (BSR torch.sparse.mm; torch.bmm
-               over pre-gathered operands for the periodic kernel, gathers
-               not timed) with CUDA events, and the bound from the card's
-               data-sheet rates.
+               walk on that core's head and tail rows at B=1, 8, 32, xres
+               and grid at B=1: kernel, plain version and library times
+               (BSR torch.sparse.mm; torch.bmm over pre-gathered operands
+               for the periodic kernel, gathers not timed) with CUDA events,
+               the bound from the card's data-sheet rates, and for grid the
+               tile copies it issued against the non-zero slots it walked.
 
 The last lines are the card's name and power limit, a JSON line of kernels,
 and {"ok": true, "device": {...}}.  Nothing here imports JAX or keynet_tpu.
 
     python3 chip_smoke.py --ab TAG=SRC_DIR [...] [--rounds N]
 
-builds the slot walk and periodic kernel of other csrc/ directories and
-times them against the checkout's, in turns, on one converted VGG-16 and
-AllConvNet (phase_ab).
+builds the four kernels of other csrc/ directories and times them against
+the checkout's, in turns, on one converted VGG-16 and AllConvNet and the
+depth-bench operand (phase_ab).
 """
 
 import json
@@ -232,10 +239,84 @@ def phase_parity(block_ell):
             check(err, scale, tol, "periodic_block_ell_matvec %s %s" % (str(dtype), case))
             key = ("periodic_block_ell_matvec", None, str(dtype))
             worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
+    staged_parity(block_ell, rng, worst)
     for (name, depth, dt), e in sorted(worst.items(), key=str):
         log("[parity] %-25s depth=%-4s %-15s worst max|diff|/max(1,scale) = %.3g"
             % (name, depth, dt, e))
     zero_slots_skipped(block_ell, entries)
+
+
+def expected_grid_copies(block_ell, ids, B, n_out, TM, TN, dtype):
+    """The tile copies the grid kernel issues under launch_plan's plan: in
+    keep mode one per change of non-zero id along each block's walk of G
+    row-blocks (a, 0, a and runs across a row boundary keep the tile), in
+    stream mode one per non-zero slot; times the batch tiles and 128-wide
+    chunks.  Returns (copies, non-zero slot visits, plan)."""
+    plan = block_ell.launch_plan(B, n_out, TM, TN, dtype, kernel="grid")
+    n_rows = -(-n_out // TM)
+    flat = ids[:n_rows].cpu().numpy()
+    copies = slots = 0
+    for r0 in range(0, n_rows, plan["G"]):
+        seq = flat[r0:r0 + plan["G"]].ravel()
+        seq = seq[seq > 0]
+        slots += len(seq)
+        if plan["keep"]:
+            copies += int((seq[1:] != seq[:-1]).sum()) + (len(seq) > 0)
+        else:
+            copies += len(seq)
+    blocks = plan["grid"][0] * (TM // 128)
+    return copies * blocks, slots * blocks, plan
+
+
+def staged_parity(block_ell, rng, worst):
+    """xres and grid against the plain version on the cases their designs
+    turn on: TN = 512 (f32 and bf16: the grid kernel's stream mode; bf16
+    TN = 256 keeps), runs of G > 1 row-blocks with n_rb not a multiple of
+    G, repeated ids within a row and across row boundaries, a, 0, a runs,
+    an all-zero row, every row tile; the grid kernel's tile copies must
+    equal expected_grid_copies."""
+    import torch
+    # (B, n_rb, KB, n_uniq, n_cb, TM, TN): BT 8 (1, 5), 16 (9), 32 (20),
+    # 64 (33), 128 (130, two batch tiles); G = 2 at 701 and 601 rows, 2 at
+    # 301 rows x 2 batch tiles, 7 at 2000 rows
+    cases = [(1, 9, 5, 7, 6, 128, 512), (33, 6, 4, 5, 4, 256, 512),
+             (130, 5, 3, 6, 4, 128, 512), (5, 701, 3, 6, 9, 128, 128),
+             (9, 601, 4, 5, 7, 128, 256), (130, 301, 3, 5, 6, 128, 128),
+             (20, 2000, 2, 4, 8, 128, 128)]
+    entries = (block_ell.block_ell_matmul_xres, block_ell.block_ell_matmul_grid)
+    modes = set()
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        for case in cases:
+            B, n_rb, KB, n_uniq, n_cb, TM, TN = case
+            x, tiles, ids, cols = random_block_ell(rng, B, n_rb, KB, n_uniq, n_cb, TM, TN, dtype)
+            ids = with_repeats(ids)
+            if KB >= 3:                               # a, 0, a runs
+                ids[1::4, 1] = 0
+                ids[1::4, 2] = ids[1::4, 0]
+            n_out = n_rb * TM
+            ref = block_ell.block_ell_plain(x, tiles, ids, cols, n_out)
+            scale = float(ref.abs().max())
+            for fn in entries:
+                y = fn(x, tiles, ids, cols, n_out)
+                torch.cuda.synchronize()
+                what = "%s %s %s" % (fn.__name__, str(dtype), case)
+                if tuple(y.shape) != tuple(ref.shape):
+                    raise AssertionError("%s: shape %s, want %s" % (what, tuple(y.shape),
+                                                                   tuple(ref.shape)))
+                err = float((y - ref).abs().max())
+                check(err, scale, tol, what)
+                key = (fn.__name__, None, str(dtype))
+                worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
+            y, copies = block_ell.grid_tile_copies(x, tiles, ids, cols, n_out)
+            want, slots, plan = expected_grid_copies(block_ell, ids, B, n_out, TM, TN, dtype)
+            modes.add(("keep" if plan["keep"] else "stream", plan["G"]))
+            if copies != want:
+                raise AssertionError("grid %s %s: %d tile copies issued, the plan's walk has "
+                                     "%d (%d slots)" % (str(dtype), case, copies, want, slots))
+            check(float((y - ref).abs().max()), scale, tol, "grid (copies counted) %s" % (case,))
+    log("[parity] xres and grid at TN = 512, G > 1 runs, a, 0, a and cross-row repeats: "
+        "pass; grid tile copies == the plan's count in every case; (mode, G) seen: %s"
+        % sorted(modes))
 
 
 def zero_slots_skipped(block_ell, entries):
@@ -630,11 +711,20 @@ def measure_operand(block_ell, bk, fn, kw, tiles, ids, cols, x, where, peaks):
         log("[kernels] torch.sparse.mm BSR yardstick unavailable: %s" % e)
         lib_ms = lib_err = None
     w = bk.work(ids, TM, TN, x.shape[1], n_out, B, tiles.element_size(), peaks)
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": lib_ms}
+    if fn is block_ell.block_ell_matmul_grid:
+        # the dedup's effect: tile copies issued against non-zero slots walked
+        _, copies = block_ell.grid_tile_copies(*args)
+        want, slots, plan = expected_grid_copies(block_ell, ids, B, n_out, TM, TN, tiles.dtype)
+        if copies != want:
+            raise AssertionError("grid at %s: %d tile copies issued, the plan's walk has %d"
+                                 % (where, copies, want))
+        res.update(tile_copies=copies, slots_walked=slots, G=plan["G"],
+                   mode="keep" if plan["keep"] else "stream")
     log("[kernels] %s at %s: %s" % (fn.__name__, where, json.dumps(dict(
-        w, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_max_abs_err=lib_err,
-        achieved_tflops=w["flops"] / ms / 1e9))))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": lib_ms}
+        w, **res, library_max_abs_err=lib_err, achieved_tflops=w["flops"] / ms / 1e9))))
+    return res
 
 
 def measure(block_ell, bk, fn, kw, model, xc, where, peaks):
@@ -679,6 +769,13 @@ def phase_kernels(block_ell, bk, paths, launches, peaks):
             "AllConvNet conv1 core, B=1024", peaks)
     for fn in (be.block_ell_matmul_xres, be.block_ell_matmul_grid):
         measure(be, bk, fn, {}, knet, xcs[64], "AllConvNet conv1 core, B=64", peaks)
+    # xres and grid where the slot walk is FMA-bound: the share of the
+    # operations bound each reaches, the slot walk's beside them
+    for fn, kw in ((be.block_ell_matmul_xresd, {"depth": 4}), (be.block_ell_matmul_xres, {}),
+                   (be.block_ell_matmul_grid, {})):
+        r = measure(be, bk, fn, kw, knet, xcs[1024], "AllConvNet conv1 core, B=1024", peaks)
+        log("[kernels] %s at AllConvNet conv1 core, B=1024: %.1f%% of the %s bound"
+            % (fn.__name__, 100 * r["bound_ms"] / r["ms"], r["bound_by"]))
     # xres and grid (the kernel bench's path) at the depth bench's operand,
     # B=8, with xresd beside them
     tiles, ids, cols, rng = bk.depth_operand("cuda")
@@ -716,7 +813,31 @@ def phase_kernels(block_ell, bk, paths, launches, peaks):
                     total[k] = total.get(k, 0.0) + v
         log("[kernels] %s at VGG16 orth %s core head + tail rows, B=%d: %s"
             % (fn.__name__, name, B, json.dumps(total)))
+    head_tail_staged(be, bk, vknet, vxcs[1], name, peaks)
     return [rows[n] for n in be.ENTRIES]
+
+
+def head_tail_staged(block_ell, bk, knet, xc, layer, peaks):
+    """xres and grid on the head and tail rows of ``layer``'s periodic core
+    at B=1 (bytes bound them), summed over both parts: times and bounds,
+    and the grid kernel's tile copies against the non-zero slots it walked
+    and the unique tiles."""
+    import torch
+    core, x = core_input(knet, xc, layer)
+    total = {}
+    for part, (a, b) in zip(("head", "tail"), outside_period(core)):
+        ids, cols = core.tile_ids[a:b], core.col_blk[a:b]
+        where = "VGG16 orth %s core %s rows [%d, %d), B=%d" % (layer, part, a, b, x.shape[0])
+        for fn in (block_ell.block_ell_matmul_xres, block_ell.block_ell_matmul_grid):
+            res = measure_operand(block_ell, bk, fn, {}, core.tiles, ids, cols, x, where, peaks)
+            t = total.setdefault(fn.__name__, {})
+            for k in ("ms", "bound_ms", "tile_copies", "slots_walked"):
+                if k in res:
+                    t[k] = t.get(k, 0) + res[k]
+        g = total["block_ell_matmul_grid"]
+        g["unique_tiles"] = g.get("unique_tiles", 0) + int(torch.unique(ids[ids > 0]).numel())
+    log("[kernels] xres and grid at VGG16 orth %s core head + tail rows, B=%d: %s"
+        % (layer, x.shape[0], json.dumps(total)))
 
 
 def outside_period(core):
@@ -820,7 +941,7 @@ def periodic_resident_blocks(block_ell, knet, xc, layer):
     args = (x, core.tiles, core.tile_ids, core.col_blk, s, P, R)
     plan_fn = block_ell.launch_plan
     plan = plan_fn(R * x.shape[0], P * core.tileshape[0], *core.tileshape,
-                   core.tiles.dtype, periodic=True)
+                   core.tiles.dtype, kernel="periodic")
     tile_bytes = periodic_work(core, x.shape[0])["period_tile_bytes"]
     res = {"BT": plan["BT"]}
     y = block_ell.periodic_block_ell_matvec(*args)
@@ -866,37 +987,42 @@ def phase_bench(block_ell, bk):
 
 
 # --------------------------------------------------------------- A/B
-AB_LIBS = ("block_ell", "periodic_block_ell")
+# library -> (a marker of the checkout's launch signature, int arguments of
+# an older launch that lacks it)
+AB_LIBS = {"block_ell": ("int BT, int smem", 8), "periodic_block_ell": ("int BT, int smem", 9),
+           "block_ell_xres": ("int n_uniq", 8), "block_ell_grid": ("int n_uniq", 8)}
 
 
 class _LegacyLib:
-    """A slot-walk or periodic library built from a source whose launch
-    takes neither a row tile nor shared memory (the kernels before
-    launch_plan): the wrapper's last two int arguments are dropped."""
+    """A library built from an older source whose launch takes the first
+    ``n_int`` of the checkout's int arguments and the stream: the slot walk
+    and periodic kernel before launch_plan (no row tile, no shared memory),
+    xres and grid before their TMA versions (no n_uniq, row tile, shared
+    memory, G, mode or copy counter)."""
 
-    def __init__(self, block_ell, name, lib):
+    def __init__(self, block_ell, name, lib, n_int):
         import ctypes
-        fn_name, n_int = block_ell._LAUNCH_FN[name]
+        fn_name = block_ell._LAUNCH_FN[name][0]
         fn = getattr(lib, fn_name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (n_int - 2) + [ctypes.c_void_p]
-        setattr(self, fn_name, lambda *a: fn(*a[:-3], a[-1]))
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        setattr(self, fn_name, lambda *a: fn(*a[:5 + n_int], a[-1]))
         setattr(self, name + "_error_string", getattr(lib, name + "_error_string"))
 
 
 def build_version(block_ell, src_dir):
-    """src_dir's slot walk and periodic kernel, built and loaded: {library
-    name: library}; a source from before launch_plan is wrapped."""
-    libs = block_ell.build(verbose=True, src_dir=src_dir, names=AB_LIBS)
-    for name in AB_LIBS:
+    """src_dir's four kernels, built and loaded: {library name: library};
+    a source with an older launch is wrapped."""
+    libs = block_ell.build(verbose=True, src_dir=src_dir, names=list(AB_LIBS))
+    for name, (marker, n_int) in AB_LIBS.items():
         with open(os.path.join(src_dir, name + ".cu")) as f:
-            if "int BT, int smem" not in f.read():
-                libs[name] = _LegacyLib(block_ell, name, libs[name])
+            if marker not in f.read():
+                libs[name] = _LegacyLib(block_ell, name, libs[name], n_int)
     return libs
 
 
 def phase_ab(kt, block_ell, versions, rounds):
-    """Kernels and forwards of several builds of the slot walk and the
-    periodic kernel, on one converted VGG-16 and AllConvNet, in turns
+    """Kernels and forwards of several builds of the four kernels, on one
+    converted VGG-16 and AllConvNet and the depth-bench operand, in turns
     (round r runs the versions in order, round r+1 in reverse: A B B A ...);
     prints the medians, each version's max|diff| from the first version's
     outputs, and one JSON line."""
@@ -942,6 +1068,14 @@ def phase_ab(kt, block_ell, versions, rounds):
                           .astype(np.float32)).cuda()
     items["slot walk depth-bench operand B=8"] = (
         lambda: block_ell.block_ell_matmul_xresd(xd, tiles, ids, cols, ids.shape[0] * 128))
+    core, x = core_input(aknet, rng_x["allconv", 64], "conv1")
+    for fn in (block_ell.block_ell_matmul_xres, block_ell.block_ell_matmul_grid):
+        short = fn.__name__.rsplit("_", 1)[1]
+        items["%s depth-bench operand B=8" % short] = (
+            lambda f=fn: f(xd, tiles, ids, cols, ids.shape[0] * 128))
+        items["%s AllConvNet conv1 B=64" % short] = (
+            lambda f=fn, c=core, x=x: f(x, c.tiles, c.tile_ids, c.col_blk,
+                                        c.tile_ids.shape[0] * c.tileshape[0]))
 
     saved = {n: block_ell._LIBS[n] for n in AB_LIBS}
     times = {(v, k): [] for v, _ in versions for k in items}

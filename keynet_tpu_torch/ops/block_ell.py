@@ -13,10 +13,11 @@ On the TPU they differ in where x lives and in how many slots one dot fuses
 checked and changes nothing.  Two more have kernels of their own, which no
 operator routes to (as in keynet_tpu; the kernel bench drives them):
 
-  block_ell_matmul_xres(...)   the slot walk with a cp.async tile ring
+  block_ell_matmul_xres(...)   the slot walk with a TMA tile ring
                                (csrc/block_ell_xres.cu)
-  block_ell_matmul_grid(...)   the slot walk that keeps a staged tile over
-                               repeated ids (csrc/block_ell_grid.cu)
+  block_ell_matmul_grid(...)   the slot walk that keeps a staged tile slice
+                               over repeated ids, across row boundaries
+                               (csrc/block_ell_grid.cu)
 
 The sixth launches the periodic kernel (csrc/periodic_block_ell.cu):
 
@@ -38,9 +39,11 @@ On a CPU tensor each entry computes its plain version (``block_ell_plain``,
 ``periodic_block_ell_plain``); on a CUDA tensor it launches its kernel or
 raises.  ``LAUNCHES[name]`` counts kernel launches only.  The kernels are
 compiled with nvcc at first use into build/kernels/ (one nvcc per source,
-started together) and bound with ctypes.  The slot walk and the periodic
-kernel are launched with the row tile and shared memory that ``launch_plan``
-chooses (csrc/block_ell_core.cuh); it checks their grid beforehand.
+started together) and bound with ctypes.  Every kernel is launched with the
+row tile, shared memory and grid that ``launch_plan`` chooses for it
+(csrc/block_ell_core.cuh); it raises beforehand on a plan the card cannot
+launch.  ``grid_tile_copies`` runs the grid kernel with a device counter of
+the tile copies it issues.
 """
 
 import ctypes
@@ -66,10 +69,12 @@ SOURCES = {"block_ell": os.path.join(_CSRC, "block_ell.cu"),
            "block_ell_xres": os.path.join(_CSRC, "block_ell_xres.cu"),
            "block_ell_grid": os.path.join(_CSRC, "block_ell_grid.cu"),
            "periodic_block_ell": os.path.join(_CSRC, "periodic_block_ell.cu")}
-# library name -> (launch function, number of int arguments)
-_LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 10), "block_ell_xres": ("block_ell_xres", 8),
-              "block_ell_grid": ("block_ell_grid", 8),
-              "periodic_block_ell": ("periodic_block_ell", 11)}
+# library name -> (launch function, int arguments, pointer arguments after
+# them: the stream, and for grid first its copy counter)
+_LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 10, 1),
+              "block_ell_xres": ("block_ell_xres", 11, 1),
+              "block_ell_grid": ("block_ell_grid", 13, 2),
+              "periodic_block_ell": ("periodic_block_ell", 11, 1)}
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 _SMEM_MAX = 232448  # shared memory one block may use on sm_90
 _GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
@@ -77,9 +82,13 @@ _GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
 # The row tiles instantiated in csrc/block_ell_core.cuh -> threads a block
 # (16 column threads x BT/8 row groups x k groups), and the ring's depth.
 TILE_THREADS = {8: 64, 16: 128, 32: 128, 64: 128, 128: 256}
+GRID_CONSUMERS = 256  # the grid kernel's consumer threads (it runs one block an SM)
 STAGES = 3
 _PANEL_BYTES = 128  # contraction bytes one ring step stages (32 f32, 64 bf16)
 _BM = 128           # output columns a block owns
+_TMA_ALIGN = 1024   # slack to align swizzled TMA destinations
+_SMS = 132          # multiprocessors of the H100 SXM (the grid kernel's G)
+KERNELS = ("slot_walk", "periodic", "xres", "grid")
 _LIBS = {}
 _LOCK = threading.Lock()
 
@@ -98,36 +107,77 @@ def route(KB):
     return block_ell_matmul_xres2
 
 
-def launch_plan(rows, cols, TM, TN, dtype, periodic=False):
-    """How the slot walk (``periodic=False``; rows = B, cols = n_out) or the
-    periodic kernel (rows = R·B (rep, image) pairs, cols = P·TM) is launched:
-    the row tile BT, the least of TILE_THREADS's tiles that holds ``rows``
-    (capped at 128), the ring's STAGES, the dynamic shared memory of one
-    block (csrc/block_ell_core.cuh: STAGES x (BT + 128) panel rows of 128
-    bytes + 16, or the k groups' fold if larger, + the periodic kernel's two
-    slots of row offsets; the launch refuses fewer bytes than the layout
-    needs) and the grid (ceil(rows / BT), ceil(cols / 128)).  Raises
-    ValueError on a plan the card cannot launch."""
+def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
+    """How one of the four kernels is launched (csrc/block_ell_core.cuh):
+    ``kernel`` is "slot_walk", "xres" or "grid" (rows = B, cols = n_out) or
+    "periodic" (rows = R·B (rep, image) pairs, cols = P·TM).  Returns
+    dict(BT, stages, threads, smem, grid), and for "grid" also G and keep:
+
+    - BT, the row tile: the least of TILE_THREADS's tiles that holds
+      ``rows``, capped at 128; threads a block from TILE_THREADS, but for
+      grid k groups (at most 8) up to GRID_CONSUMERS consumer threads plus
+      its producer, a warp beside 128 consumers, a warpgroup beside 256;
+    - smem, the dynamic shared memory of a block (the launch refuses fewer
+      bytes than the layout needs).  Slot walk and periodic: the cp.async
+      ring, STAGES x (BT + 128) panel rows of 128 + 16 bytes, or the k
+      groups' fold if larger, + the periodic kernel's two slots of row
+      offsets.  xres: 1024 bytes of slack to align the swizzled TMA
+      stages, STAGES x (BT + 128) rows of 128 bytes and an mbarrier a stage
+      (the fold reuses the ring).  grid: the slack, then in keep mode two
+      128 x TN tile slices and STAGES x panels of BT x 128 bytes, else (two
+      slices do not fit) STAGES stages as in xres; then the fold and
+      2·STAGES + 4 mbarriers;
+    - grid: (ceil(rows / BT), ceil(cols / 128)); for "grid" the y extent is
+      ceil(n_rows / G) runs of G row-blocks x TM / 128 chunks, n_rows =
+      ceil(cols / TM), and G is the largest run that still gives at least
+      two blocks for each of the card's _SMS multiprocessors (1 where even
+      G = 1 gives fewer).
+
+    Raises ValueError on a plan the card cannot launch."""
     rows, cols = int(rows), int(cols)
+    if kernel not in KERNELS:
+        raise ValueError("launch_plan: kernel %r is none of %s" % (kernel, KERNELS))
     if rows < 1 or cols < 1 or TM % _BM or TN % 128:
         raise ValueError("launch_plan: rows %d, cols %d, TM %d, TN %d" % (rows, cols, TM, TN))
     itemsize = torch.empty((), dtype=dtype).element_size()
     if itemsize not in (2, 4):
         raise TypeError("launch_plan: tiles must be float32 or bfloat16, got %s" % dtype)
     BT = next((t for t in sorted(TILE_THREADS) if t >= rows), max(TILE_THREADS))
-    threads = TILE_THREADS[BT]
-    k_groups = threads // (16 * (BT // 8))
-    ring = STAGES * (BT + _BM) * (_PANEL_BYTES + 16)
-    fold = (k_groups - 1) * (threads // k_groups) * 64 * 4
-    smem = max(ring, fold) + (2 * BT * 8 if periodic else 0)
+    group = 16 * (BT // 8)                    # threads of one k group
+    k_groups = TILE_THREADS[BT] // group
+    if kernel == "grid":                      # k groups up to GRID_CONSUMERS threads
+        k_groups = min(8, max(k_groups, GRID_CONSUMERS // group))
+    threads = group * k_groups
+    fold = (k_groups - 1) * group * 64 * 4
+    x_panel, tile_panel = BT * _PANEL_BYTES, _BM * _PANEL_BYTES
     grid = (-(-rows // BT), -(-cols // _BM))
+    plan = dict(BT=BT, stages=STAGES)
+    if kernel in ("slot_walk", "periodic"):
+        ring = STAGES * (BT + _BM) * (_PANEL_BYTES + 16)
+        smem = max(ring, fold) + (2 * BT * 8 if kernel == "periodic" else 0)
+    elif kernel == "xres":
+        smem = _TMA_ALIGN + STAGES * (x_panel + tile_panel) + STAGES * 8
+    else:
+        n_rows, per_rb = -(-cols // TM), TM // _BM
+        need = -(-2 * _SMS // (grid[0] * per_rb))   # runs that give 2 blocks an SM
+        G = max(1, n_rows // need)
+        while G < n_rows and -(-n_rows // (G + 1)) >= need:
+            G += 1
+        tail = fold + (2 * STAGES + 4) * 8
+        keep_smem = _TMA_ALIGN + 2 * _BM * TN * itemsize + STAGES * x_panel + tail
+        keep = keep_smem <= _SMEM_MAX
+        smem = keep_smem if keep else _TMA_ALIGN + STAGES * (x_panel + tile_panel) + tail
+        grid = (grid[0], -(-n_rows // G) * per_rb)
+        threads += 128 if threads >= 256 else 32   # the producer
+        plan.update(G=G, keep=keep)
     if smem > _SMEM_MAX:
         raise ValueError("launch_plan: %d bytes of shared memory a block, the card "
                          "allows %d" % (smem, _SMEM_MAX))
     if grid[0] > _GRID_X_MAX or grid[1] > _GRID_Y_MAX:
         raise ValueError("launch_plan: grid %s exceeds (%d, %d)" % (grid, _GRID_X_MAX,
                                                                    _GRID_Y_MAX))
-    return dict(BT=BT, stages=STAGES, smem=smem, grid=grid)
+    plan.update(threads=threads, smem=smem, grid=grid)
+    return plan
 
 
 # ------------------------------------------------------------------ plain
@@ -207,9 +257,9 @@ def _headers(csrc):
 def _bind(name, lib):
     """Set the ctypes signature of a library's launch and error functions."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn_name, n_int = _LAUNCH_FN[name]
+    fn_name, n_int, n_tail = _LAUNCH_FN[name]
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ptr] * 5 + [i32] * n_int + [ptr]
+    fn.argtypes = [ptr] * 5 + [i32] * n_int + [ptr] * n_tail
     fn.restype = i32
     err = getattr(lib, name + "_error_string")
     err.argtypes = [i32]
@@ -319,34 +369,31 @@ def _launched(name, lib_name, err):
 
 
 def _slot_walk(name, lib_name, x_padded, tiles, tile_ids, col_blk, n_out_padded,
-               grid=False):
+               kernel="slot_walk", copies=None):
     """One slot-walk entry: the plain version on a CPU tensor, else the
-    launch of library ``lib_name``'s kernel; (B, out_width(..., grid)) f32."""
-    n_out = out_width(tile_ids.shape[0], tiles.shape[1], n_out_padded, grid)
+    launch of library ``lib_name``'s kernel (``kernel``, as launch_plan
+    names it; ``copies``: the grid kernel's int64 copy counter, or None);
+    (B, out_width(..., grid)) f32."""
+    n_out = out_width(tile_ids.shape[0], tiles.shape[1], n_out_padded, kernel == "grid")
     if x_padded.device.type == "cpu":
         return block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out)
     x, tiles, ids, cols = _operands(name, x_padded, tiles, tile_ids, col_blk)
-    _, TM, TN = tiles.shape
+    n_uniq, TM, TN = tiles.shape
     n_rb, KB = ids.shape
     B, n_cols = x.shape
     out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
     if B == 0 or n_out == 0:
         return out
-    if lib_name == "block_ell":
-        plan = launch_plan(B, n_out, TM, TN, tiles.dtype)
-        tile = (plan["BT"], plan["smem"])
-    else:
-        tile = ()
-        if -(-n_out // 128) > _GRID_Y_MAX:
-            raise ValueError("%s: n_out_padded %d exceeds the grid" % (name, n_out))
-        if grid and (128 + 64) * (TN * tiles.element_size() + 16) > _SMEM_MAX:
-            raise ValueError("%s: a %d-wide tile slice does not fit a block's shared "
-                             "memory" % (name, TN))
+    plan = launch_plan(B, n_out, TM, TN, tiles.dtype, kernel)
+    ints = [B, n_cols, n_rb, KB, TM, TN, n_out, int(tiles.dtype == torch.bfloat16)]
+    ints += ([] if kernel == "slot_walk" else [n_uniq]) + [plan["BT"], plan["smem"]]
+    tail = []
+    if kernel == "grid":
+        ints += [plan["G"], int(plan["keep"])]
+        tail = [None if copies is None else copies.data_ptr()]
     _launched(name, lib_name, getattr(_lib(lib_name), _LAUNCH_FN[lib_name][0])(
-        x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(),
-        out.data_ptr(), B, n_cols, n_rb, KB, TM, TN, n_out,
-        int(tiles.dtype == torch.bfloat16), *tile,
-        torch.cuda.current_stream(x.device).cuda_stream))
+        x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(), out.data_ptr(),
+        *ints, *tail, torch.cuda.current_stream(x.device).cuda_stream))
     return out
 
 
@@ -358,9 +405,9 @@ def block_ell_matmul(x_padded, tiles, tile_ids, col_blk, n_out_padded):
 
 def block_ell_matmul_xres(x_padded, tiles, tile_ids, col_blk, n_out_padded):
     """Replaces pallas_kernels.block_ell_matmul_xres: the slot walk whose
-    tile panels stream through a cp.async ring (csrc/block_ell_xres.cu)."""
+    tile and x panels stream through a TMA ring (csrc/block_ell_xres.cu)."""
     return _slot_walk("block_ell_matmul_xres", "block_ell_xres", x_padded, tiles,
-                      tile_ids, col_blk, n_out_padded)
+                      tile_ids, col_blk, n_out_padded, "xres")
 
 
 def block_ell_matmul_xres2(x_padded, tiles, tile_ids, col_blk, n_out_padded):
@@ -382,10 +429,24 @@ def block_ell_matmul_xresd(x_padded, tiles, tile_ids, col_blk, n_out_padded,
 
 def block_ell_matmul_grid(x_padded, tiles, tile_ids, col_blk, n_out_padded):
     """Replaces pallas_kernels.block_ell_matmul_grid: the slot walk that
-    keeps a staged tile slice while consecutive non-zero slots share its id
-    (csrc/block_ell_grid.cu).  Returns (B, min(n_out_padded, n_rb·TM))."""
+    keeps a staged tile slice while consecutive non-zero slots share its id,
+    across row boundaries too (csrc/block_ell_grid.cu).  Returns
+    (B, min(n_out_padded, n_rb·TM))."""
     return _slot_walk("block_ell_matmul_grid", "block_ell_grid", x_padded, tiles,
-                      tile_ids, col_blk, n_out_padded, grid=True)
+                      tile_ids, col_blk, n_out_padded, "grid")
+
+
+def grid_tile_copies(x_padded, tiles, tile_ids, col_blk, n_out_padded):
+    """block_ell_matmul_grid on a CUDA tensor with the kernel's tile copies
+    counted on the device: (y, tile slices copied, summed over blocks; in
+    stream mode every non-zero slot a block walks is one)."""
+    if x_padded.device.type != "cuda":
+        raise ValueError("grid_tile_copies: counts the CUDA kernel's copies; x is on %s"
+                         % x_padded.device)
+    copies = torch.zeros(1, dtype=torch.int64, device=x_padded.device)
+    y = _slot_walk("block_ell_matmul_grid", "block_ell_grid", x_padded, tiles, tile_ids,
+                   col_blk, n_out_padded, "grid", copies)
+    return y, int(copies.item())
 
 
 def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):
@@ -407,7 +468,7 @@ def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):
     out = torch.empty((B, P * R * TM), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    plan = launch_plan(R * B, P * TM, TM, TN, tiles.dtype, periodic=True)
+    plan = launch_plan(R * B, P * TM, TM, TN, tiles.dtype, "periodic")
     _launched(name, "periodic_block_ell", _lib("periodic_block_ell").periodic_block_ell(
         x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         out.data_ptr(), B, n_cols, KB, TM, TN, s, P, R,

@@ -157,7 +157,7 @@ def test_launch_plan(rows, dtype, tm):
     assert plan["grid"][0] * BT >= rows > (plan["grid"][0] - 1) * BT
     assert plan["grid"][1] * 128 >= n_out > (plan["grid"][1] - 1) * 128
     # the periodic kernel's plan adds its two slots of row offsets
-    per = block_ell.launch_plan(rows, n_out, tm, tm, dtype, periodic=True)
+    per = block_ell.launch_plan(rows, n_out, tm, tm, dtype, kernel="periodic")
     assert per["BT"] == BT and per["smem"] == plan["smem"] + 16 * BT
     with pytest.raises(ValueError):        # more 128-column chunks than grid.y holds
         block_ell.launch_plan(rows, 65536 * 128, tm, tm, dtype)
@@ -178,6 +178,105 @@ def test_launch_plan_smem_is_the_ring():
     for BT in block_ell.TILE_THREADS:
         assert block_ell.launch_plan(BT, 128, 128, 512, torch.bfloat16)["smem"] == smem[
             sorted(block_ell.TILE_THREADS).index(BT)]
+
+
+def _fold_bytes(BT, threads=None):
+    """The k groups' fold of a row tile run by ``threads`` (default: the
+    slot walk's) threads: (k groups - 1) x 64 floats a thread of a group."""
+    group = 16 * (BT // 8)
+    threads = block_ell.TILE_THREADS[BT] if threads is None else threads
+    return (threads // group - 1) * group * 64 * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_xres_launch_plan(rows, dtype):
+    """The xres plan: the slot walk's row tile, threads and grid; shared
+    memory = 1024 bytes of alignment slack + STAGES swizzled stages of
+    (BT + 128) rows of 128 bytes, each a multiple of 1024 bytes (TMA's
+    swizzled destinations stay aligned), + an mbarrier a stage, with room for
+    the k groups' fold in the ring; raises where the grid cannot launch."""
+    walk = block_ell.launch_plan(rows, 5 * 128, 128, 128, dtype)
+    plan = block_ell.launch_plan(rows, 5 * 128, 128, 128, dtype, kernel="xres")
+    BT = plan["BT"]
+    assert (BT, plan["grid"], plan["stages"]) == (walk["BT"], walk["grid"], walk["stages"])
+    assert plan["threads"] == block_ell.TILE_THREADS[BT]
+    stage = (BT + 128) * 128
+    assert stage % 1024 == 0
+    assert plan["smem"] == 1024 + block_ell.STAGES * stage + block_ell.STAGES * 8
+    assert _fold_bytes(BT) <= block_ell.STAGES * stage
+    # the same bytes in either dtype and at any TN: a stage is 128-byte panels
+    assert block_ell.launch_plan(rows, 640, 128, 512, torch.bfloat16, kernel="xres")[
+        "smem"] == plan["smem"]
+    with pytest.raises(ValueError):        # more 128-column chunks than grid.y holds
+        block_ell.launch_plan(rows, 65536 * 128, 128, 128, dtype, kernel="xres")
+
+
+@pytest.mark.parametrize("tn", [128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_grid_launch_plan(rows, dtype, tn):
+    """The grid plan: the slot walk's row tile, 256 consumer threads (k
+    groups added; 128 at BT = 8, one 16-byte chunk a group) and a producer
+    warp beside 128 of them, a warpgroup beside 256 (it hands its registers
+    over); keep
+    mode exactly where two 128 x TN tile slices, the x ring, the fold and
+    the 2·STAGES + 4 mbarriers fit a block (f32 TN = 128, bf16 TN <= 256),
+    else the streamed stages, so every TN is taken (TN = 512 in f32, which
+    the kernel once refused, included); G the largest run of row-blocks that
+    keeps >= 2 blocks for each of 132 multiprocessors; a grid over every
+    row-block with output columns."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_rb, TM = 300, 256
+    plan = block_ell.launch_plan(rows, n_rb * TM, TM, tn, dtype, kernel="grid")
+    BT, G = plan["BT"], plan["G"]
+    assert BT == block_ell.launch_plan(rows, n_rb * TM, TM, tn, dtype)["BT"]
+    consumers = 128 if BT == 8 else 256
+    assert plan["threads"] == consumers + (32 if BT == 8 else 128)
+    tail = _fold_bytes(BT, consumers) + (2 * block_ell.STAGES + 4) * 8
+    keep = 1024 + 2 * 128 * tn * itemsize + block_ell.STAGES * BT * 128 + tail
+    assert plan["keep"] == (keep <= 232448) == (tn * itemsize <= 512)
+    stream = 1024 + block_ell.STAGES * (BT + 128) * 128 + tail
+    assert plan["smem"] == (keep if plan["keep"] else stream) <= 232448
+    bt = -(-rows // BT)
+
+    def blocks(g):
+        return bt * -(-n_rb // g) * (TM // 128)
+    assert plan["grid"] == (bt, blocks(G) // bt)
+    assert 1 <= G <= n_rb
+    assert G == 1 or blocks(G) >= 2 * 132
+    assert G == n_rb or blocks(G + 1) < 2 * 132
+    # output columns stop at n_out: row-blocks past them get no block
+    part = block_ell.launch_plan(rows, 7 * TM - 5, TM, tn, dtype, kernel="grid")
+    assert part["grid"][1] == -(-7 // part["G"]) * 2
+
+
+def test_grid_launch_plan_at_the_bench_shapes():
+    """G at the depth-bench operand (784 row-blocks: G = 2 at B = 1 and 8,
+    392 blocks) and at 189 row-blocks (the VGG conv1_2 head rows, B = 1:
+    fewer than 264 blocks even at G = 1); AllConvNet conv1 at B = 1024 (8
+    batch tiles of 128, 769 row-blocks) runs 24 row-blocks a block."""
+    f32 = torch.float32
+    for B in (1, 8):
+        plan = block_ell.launch_plan(B, 784 * 128, 128, 128, f32, kernel="grid")
+        assert (plan["G"], plan["grid"], plan["keep"]) == (2, (1, 392), True)
+    assert block_ell.launch_plan(1, 189 * 128, 128, 128, f32, kernel="grid")["G"] == 1
+    plan = block_ell.launch_plan(1024, 769 * 128, 128, 128, f32, kernel="grid")
+    assert (plan["BT"], plan["G"], plan["grid"]) == (128, 24, (8, 33))
+    assert not block_ell.launch_plan(8, 128, 128, 512, f32, kernel="grid")["keep"]
+
+
+def test_launch_plan_names_its_kernel():
+    with pytest.raises(ValueError):
+        block_ell.launch_plan(8, 128, 128, 128, torch.float32, kernel="hbm")
+
+
+def test_grid_tile_copies_needs_the_card():
+    """The copy count is the CUDA kernel's: a CPU tensor is refused, not
+    answered by the plain version."""
+    x, tiles, ids, cols = (torch.from_numpy(a) for a in _operands(CASES[0]))
+    with pytest.raises(ValueError):
+        block_ell.grid_tile_copies(x, tiles, ids, cols, 11 * TM)
 
 
 def _tiny_net():

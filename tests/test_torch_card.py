@@ -72,17 +72,22 @@ def test_kernel_matches_plain_on_card(B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 9, 20, 33, 130])
 @pytest.mark.parametrize("name", ["block_ell_matmul_xres", "block_ell_matmul_grid"])
-def test_staged_kernels_on_repeated_ids_and_wide_tiles(name):
+def test_staged_kernels_on_repeated_ids_and_wide_tiles(name, B):
     """The xres and grid kernels against the plain version in f32 and bf16
-    at TN = 256 and TM = 256, on rows whose consecutive non-zero slots repeat
-    a tile id (a, a, 0, a: the grid kernel keeps its staged slice over the
-    id-0 slot) and rows that end and start on one id."""
+    at every row tile (B = 1, 9, 20, 33, 130: BT 8 to 128, the last over two
+    batch tiles), TN = 128, 256 and 512 (TN = 512 in f32 is the grid case
+    that was once refused; the grid kernel streams its panels there), TM =
+    256, on rows whose consecutive non-zero slots repeat a tile id (a, a, 0,
+    a: the grid kernel keeps its slice over the id-0 slot) and rows that
+    start on the last id of the row before, over 601 row-blocks, so the grid
+    kernel's blocks walk runs of G = 2 of them, n_rb not a multiple of G."""
     _needs_card()
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(2 + B)
     fn = getattr(block_ell, name)
-    for B, n_rb, KB, n_uniq, n_cb, TM_, TN_ in ((5, 9, 6, 7, 5, 128, 256),
-                                               (130, 6, 5, 6, 4, 256, 128)):
+    for n_rb, KB, n_uniq, n_cb, TM_, TN_ in ((9, 6, 7, 5, 128, 512), (6, 5, 6, 4, 256, 256),
+                                             (601, 5, 6, 7, 128, 128)):
         tiles = rng.standard_normal((n_uniq, TM_, TN_)).astype(np.float32)
         tiles[0] = 0.0
         ids = rng.integers(1, n_uniq, size=(n_rb, KB)).astype(np.int32)
@@ -99,6 +104,32 @@ def test_staged_kernels_on_repeated_ids_and_wide_tiles(name):
             y = fn(x, t, ids_d, cols_d, n_rb * TM_)
             torch.cuda.synchronize()
             _close(y, ref, tol)
+
+
+@pytest.mark.cuda
+def test_grid_keeps_a_tile_across_rows():
+    """Where every non-zero slot of 600 row-blocks names tile 1 (a, 0, a
+    runs and all-zero rows among them), the grid kernel copies the tile once
+    for each block's run of G row-blocks (keep mode, f32 TN = 128), and once
+    for every non-zero slot in stream mode (f32 TN = 256); both equal the
+    plain version."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    for tn in (128, 256):
+        n_rb, KB = 600, 4
+        tiles = rng.standard_normal((3, TM, tn)).astype(np.float32)
+        tiles[0] = 0.0
+        ids = np.ones((n_rb, KB), dtype=np.int32)
+        ids[::3, 1] = 0                          # a, 0, a
+        ids[5::7] = 0                            # all-zero rows
+        cols = rng.integers(0, 6, size=(n_rb, KB)).astype(np.int32)
+        x = torch.from_numpy(rng.standard_normal((1, 6 * tn)).astype(np.float32)).cuda()
+        t, ids_d, cols_d = (torch.from_numpy(a).cuda() for a in (tiles, ids, cols))
+        y, copies = block_ell.grid_tile_copies(x, t, ids_d, cols_d, n_rb * TM)
+        _close(y, block_ell.block_ell_plain(x, t, ids_d, cols_d, n_rb * TM), 1e-5)
+        plan = block_ell.launch_plan(1, n_rb * TM, TM, tn, torch.float32, kernel="grid")
+        assert plan["G"] == 2 and plan["keep"] == (tn == 128)
+        assert copies == (n_rb // plan["G"] if plan["keep"] else int((ids > 0).sum()))
 
 
 @pytest.mark.cuda

@@ -85,7 +85,7 @@ def test_periodic_launch_plan(R, B):
     P, TM = 784, 128
     tiles = sorted(block_ell.TILE_THREADS)
     for dtype in (torch.float32, torch.bfloat16):
-        plan = block_ell.launch_plan(R * B, P * TM, TM, 128, dtype, periodic=True)
+        plan = block_ell.launch_plan(R * B, P * TM, TM, 128, dtype, kernel="periodic")
         assert plan["BT"] == min([t for t in tiles if t >= R * B] or [tiles[-1]])
         assert plan["grid"] == (-(-R * B // plan["BT"]), P)
         walk = block_ell.launch_plan(R * B, P * TM, TM, 128, dtype)
