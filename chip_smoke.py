@@ -54,7 +54,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
                bench at the 784 x 40 operand of 27,000 tiles); every row is
                held against the plain version; every entry it drives must
                have launched, xres and grid among them;
-  6. kernels   one row per Pallas function: each slot-walk entry at the
+  6. main path, slice 6 (each part with the counts set to 0 just before and
+               read just after):
+               [train] the paper's workflow: AllConvNet(seed=1) trained 20
+               steps at B=128 on synthetic CIFAR-10 with the CIFAR recipe
+               (the loss over the batches trained on must fall), keyed as
+               in phase 3 (conv1's core launches block_ell_matmul_xresd),
+               validated plain against keyed on 512 test images (equal
+               accuracies, logits within 1e-5*max(1, scale)), published
+               with save_keynet and served with load_keynet (bitwise equal
+               forward);
+               [tiled] TiledOrthogonalKeynet LeNet_AvgPool and
+               Keynet(tileshape=(t, t)) for t = 4, 32 and 16 (periodic):
+               Block-ELL cores of sub-128 tiles take the einsum route,
+               keyed == source;
+               [vgg-identity] the identity VGG-16 at 3x224x224 on
+               DirectConvOp and DenseOp, keyed == source at B=1, 8 and 32;
+  7. kernels   one row per Pallas function: each slot-walk entry at the
                shape its main path gave it (the depth-1 entry, which no core
                routes to on this card, at the shape the JAX package routes
                it: AllConvNet conv1 at B=1024; xres and grid at the depth
@@ -79,6 +95,13 @@ and {"ok": true, "device": {...}}.  Nothing here imports JAX or keynet_tpu.
 builds the four kernels of other csrc/ directories and times them against
 the checkout's, in turns, on one converted VGG-16 and AllConvNet and the
 depth-bench operand (phase_ab).
+
+    python3 chip_smoke.py --outputs FILE [--tree DIR] [--against FILE]
+
+converts the orth VGG-16 and the AllConvNet with the keynet_tpu_torch of
+DIR (default this checkout), saves their keyed outputs and forward times,
+and holds them against another tree's file (phase_outputs).  Each phase's
+seconds are logged as "[time] ...".
 """
 
 import json
@@ -119,17 +142,39 @@ def check(err, scale, tol, what):
                              % (what, err, bound, scale))
 
 
+class global_keys:
+    """Set keynet_tpu_torch GLOBAL keys for a conversion, restored on exit."""
+
+    def __init__(self, kt, **keys):
+        self.G, self.keys = kt.globals.GLOBAL, keys
+
+    def __enter__(self):
+        self.saved = {k: self.G.get(k) for k in self.keys}
+        self.G.update(self.keys)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                self.G.pop(k, None)
+            else:
+                self.G[k] = v
+
+
 # --------------------------------------------------------------- phase 1
-def phase_build():
+def phase_build(root=ROOT):
+    """Build the native packer and the CUDA kernels of the checkout at
+    ``root`` (this one, or another tree to compare) and import its
+    keynet_tpu_torch."""
     t = time.perf_counter()
     r = subprocess.run([sys.executable, "setup.py", "build_ext", "--inplace"],
-                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+                       cwd=root, capture_output=True, text=True, timeout=600)
     log("[build] native packer: rc=%d in %.1f s" % (r.returncode, time.perf_counter() - t))
     if r.returncode:
         # numpy packing would turn the VGG conversion's minutes into hours
         raise RuntimeError("native packer build failed:\n" + r.stderr[-2000:])
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
     import keynet_tpu_torch as kt
+    log("[build] keynet_tpu_torch from %s" % os.path.dirname(os.path.dirname(kt.__file__)))
     from keynet_tpu_torch.ops import block_ell
     if not kt.native.available() or kt.native.spgemm_dr is None:
         raise RuntimeError("the native packer did not load")
@@ -359,14 +404,21 @@ def zero_slots_skipped(block_ell, entries):
 
 # --------------------------------------------------------------- phase 3
 def route_str(op):
-    from keynet_tpu_torch.ops.operators import (ChainedOp, ChannelBroadcastOp,
-                                                PermutedBlockSparseOp)
+    """An op's kind down its chain; a Block-ELL core with its (n_rb, KB),
+    unique tiles, tile shape, period, block_ell_route on its device
+    ("kernel" or "einsum") and whether it holds a grouped-row plan (whose
+    einsum it takes where _grouped_wins)."""
+    from keynet_tpu_torch.ops.operators import (BlockSparseOp, ChainedOp,
+                                                ChannelBroadcastOp,
+                                                PermutedBlockSparseOp, block_ell_route)
     if isinstance(op, ChainedOp):
         return "Chain[%s]" % ", ".join(route_str(o) for o in op.ops)
-    if isinstance(op, PermutedBlockSparseOp):
-        c = op.inner
-        return "PermutedBlockSparseOp(Block-ELL %s, %d tiles, period %s)" % (
-            tuple(c.tile_ids.shape), c.tiles.shape[0], c.period)
+    if isinstance(op, (PermutedBlockSparseOp, BlockSparseOp)):
+        c = getattr(op, "inner", op)
+        return "%s(Block-ELL %s, %d tiles of %dx%d, period %s, %s%s)" % (
+            type(op).__name__, tuple(c.tile_ids.shape), c.tiles.shape[0], *c.tileshape,
+            c.period, block_ell_route(c.tiles.device.type, *c.tileshape),
+            "" if c._rgroups is None else ", grouped-row plan")
     if isinstance(op, ChannelBroadcastOp):
         return "ChannelBroadcastOp(C=%d, %s)" % (op.C, route_str(op.inner))
     return "%s%s" % (type(op).__name__, tuple(op.shape))
@@ -396,11 +448,15 @@ def block_ell_cores(sensor, knet):
 
 def entries_of(block_ell, core, B):
     """The kernel entries one apply of ``core`` to B rows launches on the
-    card (BlockSparseOp.apply): the periodic kernel for the mid-section
-    when the period route is taken, none when the grouped-row einsum is,
-    else the slot walk of route(KB) for the rows outside the period."""
+    card (BlockSparseOp.apply): none for tiles that block_ell_route sends
+    to the einsum, the periodic kernel for the mid-section when the period
+    route is taken, none when the grouped-row einsum is, else the slot walk
+    of route(KB) for the rows outside the period."""
     import torch
+    from keynet_tpu_torch.ops.operators import block_ell_route
     n_rb, KB = core.tile_ids.shape
+    if block_ell_route("cuda", *core.tileshape) != "kernel":
+        return set()
     if core.period is not None:
         s, P, R = core.period
         if B <= (R - 1) * core.tileshape[0] // R:
@@ -418,7 +474,7 @@ def never_routed(launches, where):
             raise AssertionError("%s launched %d times on %s" % (name, launches[name], where))
 
 
-def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5):
+def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5, tag="main"):
     """Encrypt a seeded batch, hold the keyed forward against the source
     forward, and time the keyed forward; returns (cipher batch, keyed
     forwards run)."""
@@ -442,7 +498,7 @@ def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5):
         ms, times = cuda_ms(lambda: knet.forward(xc), reps=reps, warmup=1)
         res.update(ms=ms, imgs_per_s=B / (ms / 1e3), reps_ms=times)
         forwards += 1 + reps
-    log("[main] %s B=%d: %s" % (label, B, json.dumps(res)))
+    log("[%s] %s B=%d: %s" % (tag, label, B, json.dumps(res)))
     return xc, forwards
 
 
@@ -481,22 +537,13 @@ def phase_main_allconv(kt, block_ell):
         if l != "relu":
             log("[main] route %s: %s" % (name, route_str(l.op())))
 
-    G = kt.globals.GLOBAL
-    saved = {k: G.get(k) for k in ("DENSE_MAX_BYTES", "ELL_MAX_K")}
-    G["DENSE_MAX_BYTES"], G["ELL_MAX_K"] = 1 << 20, 32
-    try:
-        m = kt.models
-        narrow = m.Model([m.Conv2d("conv1", 3, 8, 3), m.ReLU("relu1"),
-                          m.Conv2d("conv2", 8, 8, 3), m.ReLU("relu2"),
-                          m.Linear("fc1", 8 * 16 * 16, 10)], inshape=(3, 16, 16), seed=1)
+    m = kt.models
+    narrow = m.Model([m.Conv2d("conv1", 3, 8, 3), m.ReLU("relu1"),
+                      m.Conv2d("conv2", 8, 8, 3), m.ReLU("relu2"),
+                      m.Linear("fc1", 8 * 16 * 16, 10)], inshape=(3, 16, 16), seed=1)
+    with global_keys(kt, DENSE_MAX_BYTES=1 << 20, ELL_MAX_K=32):
         ns, nk = kt.StochasticKeynet((3, 16, 16), narrow, alpha=2, blocksize=8,
                                      seed=0, device="cuda")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                G.pop(k, None)
-            else:
-                G[k] = v
     log("[main] route narrow conv1: %s" % route_str(nk.layers()["conv1"].op()))
     lenet = kt.models.LeNet_AvgPool(seed=0)
     ls, lk = kt.PermutationKeynet((1, 28, 28), lenet, seed=0, device="cuda")
@@ -986,6 +1033,240 @@ def phase_bench(block_ell, bk):
     return launches
 
 
+# --------------------------------------------------------------- slice 6
+def log_routes(tag, sensor, knet, what=""):
+    pre = "[%s] %s" % (tag, what + ": " if what else "")
+    log("%sroute sensor: %s" % (pre, route_str(sensor.op())))
+    for name, l in knet.layers().items():
+        if l != "relu":
+            log("%sroute %s: %s" % (pre, name, route_str(l.op())))
+
+
+def phase_train(kt, block_ell):
+    """Slice 6, the paper's workflow (the counts set to 0 just before and
+    read just after): train AllConvNet(seed=1) at 3x32x32 on synthetic
+    CIFAR-10 with the CIFAR recipe (SGD lr 0.01, momentum 0.9, weight decay
+    1e-3; keynet_tpu/train.py:3-6) for 20 steps at B=128 (the loss over the
+    20 batches must fall); key it with bench.py's second configuration
+    (StochasticKeynet alpha 2, blocksize 8, seed 0); validate plain against
+    keyed on 512 synthetic test images at
+    B=128 (equal accuracies, logits within 1e-5*max(1, scale)); publish it
+    with save_keynet and serve it with load_keynet(device="cuda"), whose
+    forward must be bitwise equal.  The keyed conv1 core (KB 16) launches
+    block_ell_matmul_xresd."""
+    import numpy as np
+    import torch
+    block_ell.reset_launches()
+    net = kt.models.AllConvNet(seed=1)
+    x, y = kt.datasets.load_cifar10(root=None, synthetic_n=20 * 128)
+    params = kt.train.params_tree(net, "cuda")
+    step = kt.train.make_train_step(net, *kt.train.make_optimizer(
+        params, lr=0.01, momentum=0.9, weight_decay=1e-3))
+    train = [(torch.from_numpy(xb).cuda(), torch.from_numpy(yb).cuda())
+             for xb, yb in kt.datasets.batches(x, y, batch_size=128)(0)]
+
+    def train_loss():
+        """The loss over the 20 training batches (no step)."""
+        with torch.no_grad():
+            return statistics.mean(float(kt.train.log_softmax_nll(
+                net.forward(xb, params=params), yb)) for xb, yb in train)
+    before = train_loss()
+    losses, step_ms = [], []
+    for xb, yb in train:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(params, xb, yb)
+        b.record()
+        b.synchronize()
+        losses.append(float(loss))
+        step_ms.append(a.elapsed_time(b))
+    after = train_loss()
+    net.params = {k: {kk: v.detach().cpu().numpy() for kk, v in d.items()}
+                  for k, d in params.items()}
+    log("[train] AllConvNet CIFAR-10 recipe, %d steps at B=128: %s" % (len(losses), json.dumps(
+        dict(first_loss=losses[0], last_loss=losses[-1], losses=losses,
+             train_loss_before=before, train_loss_after=after,
+             ms_per_step_median=statistics.median(step_ms), first_step_ms=step_ms[0],
+             steps_2_on_ms_mean=statistics.mean(step_ms[1:])))))
+    # From this init the net sits near ln 10 for many more than 20 steps, so a
+    # step's loss is mostly the noise of its batch: the check is the loss
+    # over the batches trained on, before and after.
+    if not (len(losses) == 20 and np.isfinite(losses).all() and after < before):
+        raise AssertionError("[train] the loss over the training batches did not fall: "
+                             "%.7f -> %.7f" % (before, after))
+
+    t = time.perf_counter()
+    sensor, knet = kt.StochasticKeynet((3, 32, 32), net, alpha=2, blocksize=8, seed=0,
+                                       device="cuda")
+    knet._build()
+    log("[train] keyed the trained net (StochasticKeynet alpha 2, blocksize 8, seed 0): "
+        "%.1f s conversion" % (time.perf_counter() - t))
+    log_routes("train", sensor, knet)
+
+    xt, yt = kt.datasets.load_cifar10(root=None, train=False, synthetic_n=512)
+    test = list(kt.datasets.batches(xt, yt, batch_size=128, shuffle=False)(0))
+    acc_plain = kt.train.validate(net, test, verbose=False, device="cuda")
+    acc_keyed = kt.train.validate(net, test, secret_sensor=sensor, secret_knet=knet,
+                                  verbose=False)
+    worst = 0.0
+    for xb, _ in test:
+        yk = knet.forward(sensor.fromtensor(xb).encrypt().tensor())
+        ys = net.forward(xb, device="cuda")
+        err, scale = float((yk - ys).abs().max()), float(ys.abs().max())
+        check(err, scale, TOL_F32, "[train] keyed vs plain logits")
+        worst = max(worst, err / max(1.0, scale))
+    log("[train] validate on %d test images: plain %.6f, keyed %.6f; logits worst "
+        "max|diff|/max(1, scale) %.3g" % (len(test) * 128, acc_plain, acc_keyed, worst))
+    if acc_plain != acc_keyed:
+        raise AssertionError("[train] keyed accuracy %r != plain %r" % (acc_keyed, acc_plain))
+
+    path = os.path.join(ROOT, "build", "bundles", "allconv_trained.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t = time.perf_counter()
+    kt.save_keynet(path, knet)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    _, served = kt.load_keynet(path, device="cuda")
+    served._build()
+    load_s = time.perf_counter() - t
+    xc = sensor.fromtensor(test[0][0]).encrypt().tensor()
+    if not torch.equal(served.forward(xc), knet.forward(xc)):
+        raise AssertionError("[train] the loaded bundle's forward is not bitwise equal")
+    log("[train] save_keynet %.2f s, %d bytes; load_keynet(device='cuda') %.2f s; the "
+        "served forward is bitwise equal at B=128" % (save_s, os.path.getsize(path), load_s))
+    torch.cuda.synchronize()
+    launches = dict(block_ell.LAUNCHES)
+    log("[train] launches: %s" % json.dumps(launches))
+    if launches["block_ell_matmul_xresd"] <= 0:
+        raise AssertionError("block_ell_matmul_xresd was not launched on the slice-6 path")
+    return launches
+
+
+def small_tile_keynet(kt, t):
+    """Keynet(tileshape=(t, t)) on the card: for t = 4 and 32 a 3x32x32 net
+    (DENSE_MAX_BYTES 64 KiB) whose conv2, and at t = 4 conv1, packs as
+    Block-ELL with t x t tiles; for t = 16 a narrow VGG-shaped 3x56x56 net
+    streamed into periodic cores of 16 x 16 tiles (as tests/test_torch_card.py
+    keys them).  Returns (source net, sensor, keyed net)."""
+    m = kt.models
+    if t == 16:
+        net = m.Model([m.Conv2d("conv1", 3, 8, 3), m.ReLU("relu1"),
+                       m.Conv2d("conv2", 8, 8, 3), m.ReLU("relu2"),
+                       m.AvgPool2d("pool2", 3, 2),
+                       m.Conv2d("conv3", 8, 8, 3), m.ReLU("relu3"),
+                       m.Linear("fc4", 8 * 28 * 28, 10)], inshape=(3, 56, 56), seed=5)
+        with global_keys(kt, STREAM_NNZ=1000, KRON_FACTORED="never", POOL_FACTOR_MIN_N=1):
+            return (net,) + kt.Keynet((3, 56, 56), net, tileshape=(16, 16), blocksize=16,
+                                      local_geometric="givens_orthogonal", alpha=2.0,
+                                      local_photometric="uniform_random_affine", beta=1.0,
+                                      gamma=1.0, seed=0, device="cuda")
+    net = m.Model([m.Conv2d("conv1", 3, 4, 3), m.ReLU("relu1"),
+                   m.Conv2d("conv2", 4, 4, 3), m.ReLU("relu2"),
+                   m.AvgPool2d("pool2", 3, 2),
+                   m.Linear("fc1", 4 * 16 * 16, 10)], inshape=(3, 32, 32), seed=1)
+    with global_keys(kt, DENSE_MAX_BYTES=1 << 16):
+        return (net,) + kt.Keynet((3, 32, 32), net, tileshape=(t, t), blocksize=t,
+                                  local_photometric="uniform_random_affine", beta=1.0,
+                                  gamma=1.0, seed=0, device="cuda")
+
+
+def phase_tiled(kt, block_ell):
+    """Slice 6, Block-ELL tiles that are not multiples of 128 (the counts set
+    to 0 just before and read just after): TiledOrthogonalKeynet on
+    LeNet_AvgPool at 1x28x28, tilesize 14 (DENSE_MAX_BYTES 1 MiB, so conv2
+    packs as Block-ELL with 16x16 tiles), and Keynet(tileshape=(t, t)) for
+    t = 4, 32 and 16 (periodic) at B=64 (the periodic one also at B=8, where
+    its mid-sections take the period route); keyed == source within
+    1e-5*max(1, scale), every such core routed to the einsum."""
+    import torch
+    from keynet_tpu_torch.ops.operators import block_ell_route
+    nets = []
+    t = time.perf_counter()
+    with global_keys(kt, DENSE_MAX_BYTES=1 << 20):
+        lenet = kt.models.LeNet_AvgPool(seed=0)
+        nets.append(("TiledOrthogonalKeynet LeNet_AvgPool tilesize 14", (lenet,) +
+                     kt.TiledOrthogonalKeynet((1, 28, 28), lenet, tilesize=14, seed=0,
+                                              device="cuda"), (64,)))
+    for tile in (4, 32, 16):
+        nets.append(("Keynet tileshape (%d, %d)" % (tile, tile), small_tile_keynet(kt, tile),
+                     (64, 8) if tile == 16 else (64,)))
+    log("[tiled] conversions: %.1f s" % (time.perf_counter() - t))
+    block_ell.reset_launches()
+    for label, (net, sensor, knet), batches in nets:
+        log_routes("tiled", sensor, knet, label)
+        cores = block_ell_cores(sensor, knet)
+        small = [c for _, c, _ in cores if c.tileshape[0] % 128 or c.tileshape[1] % 128]
+        if not small or any(block_ell_route("cuda", *c.tileshape) != "einsum" for c in small):
+            raise AssertionError("[tiled] %s: no einsum-routed sub-128 core" % label)
+        for B in batches:
+            keyed_vs_source(kt, net, sensor, knet, B, 200 + B, label, tag="tiled")
+    torch.cuda.synchronize()
+    launches = dict(block_ell.LAUNCHES)
+    log("[tiled] launches: %s" % json.dumps(launches))
+    return launches
+
+
+def phase_vgg_identity(kt, block_ell):
+    """Slice 6, the identity recipe of scripts/run_vgg_identity_224.py:32 at
+    3x224x224 (VGG16(seed=5), IdentityKeynet seed 0; the counts set to 0 just
+    before and read just after): every conv and pool routes to DirectConvOp
+    and fc6-8 to DenseOp; keyed == source within 1e-5*max(1, scale) at B=1,
+    8 and 32, with the forward times."""
+    import torch
+    net = kt.models.VGG16(seed=5)
+    t = time.perf_counter()
+    sensor, knet = kt.IdentityKeynet((3, 224, 224), net, seed=0, device="cuda")
+    knet._build()
+    log("[vgg-identity] conversion: %.2f s (host), nnz %d, device_bytes %d"
+        % (time.perf_counter() - t, knet.num_parameters(), knet.device_bytes()))
+    log_routes("vgg-identity", sensor, knet)
+    for name, l in knet.layers().items():
+        want = "DenseOp" if name.startswith("fc") else "DirectConvOp"
+        if l != "relu" and type(l.op()).__name__ != want:
+            raise AssertionError("[vgg-identity] %s routes to %s, want %s"
+                                 % (name, type(l.op()).__name__, want))
+    block_ell.reset_launches()
+    for B in (1, 8, 32):
+        keyed_vs_source(kt, net, sensor, knet, B, 300 + B, "VGG16 identity",
+                        reps=5 if B < 32 else 3, tag="vgg-identity")
+    torch.cuda.synchronize()
+    launches = dict(block_ell.LAUNCHES)
+    log("[vgg-identity] launches: %s" % json.dumps(launches))
+    return launches
+
+
+def phase_outputs(kt, path, against=None):
+    """The keyed outputs and forward times of the orth VGG-16 (B=1, 8, 32)
+    and the StochasticKeynet AllConvNet (B=64, 1024) on chip_smoke's seeded
+    batches, written to ``path`` (npz).  With ``against`` (such a file from
+    another tree), prints each output's max|diff| from it and the ratio of
+    the times."""
+    import numpy as np
+    import torch
+    out, ms = {}, {}
+    for tag, make, batches in (("vgg", vgg_keynet, (1, 8, 32)),
+                               ("allconv", allconv_keynet, (64, 1024))):
+        net, sensor, knet = make(kt)
+        for B in batches:
+            x = np.random.default_rng(B if tag == "allconv" else 100 + B) \
+                .standard_normal((B, *net.inshape)).astype(np.float32)
+            xc = sensor.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor()
+            key = "%s B=%d" % (tag, B)
+            out[key] = knet.forward(xc).cpu().numpy()
+            ms[key] = cuda_ms(lambda: knet.forward(xc), reps=5 if B < 32 else 3)[0]
+        del net, sensor, knet
+        torch.cuda.empty_cache()
+    np.savez(path, **out, **{"ms " + k: np.float64(v) for k, v in ms.items()})
+    log("[outputs] %s: %s" % (path, json.dumps(ms)))
+    if against:
+        with np.load(against) as ref:
+            for k in out:
+                log("[outputs] %s: max|diff| from %s %.3g (bitwise equal: %s), ms %.3f "
+                    "against %.3f" % (k, against, float(np.abs(out[k] - ref[k]).max()),
+                                      bool(np.array_equal(out[k], ref[k])), ms[k],
+                                      float(ref["ms " + k])))
+
+
 # --------------------------------------------------------------- A/B
 # library -> (a marker of the checkout's launch signature, int arguments of
 # an older launch that lacks it)
@@ -1111,26 +1392,43 @@ def phase_ab(kt, block_ell, versions, rounds):
                       "order": [t for t, _ in versions]}), flush=True)
 
 
+def timed(phase, fn, *args):
+    """fn(*args), with the phase's seconds logged."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log("[time] %s: %.1f s" % (phase, time.perf_counter() - t))
+    return out
+
+
 def main(argv=None):
     """python3 chip_smoke.py: the smoke run above.  python3 chip_smoke.py
     --ab TAG=SRC_DIR [...] [--rounds N]: the checkout's build ("change")
     against builds of other csrc/ directories (e.g. the parent commit's,
-    unpacked with git archive), in turns (phase_ab)."""
+    unpacked with git archive), in turns (phase_ab).  python3 chip_smoke.py
+    --outputs FILE [--tree DIR] [--against FILE]: the keyed outputs and
+    forward times of the orth VGG-16 and AllConvNet of the keynet_tpu_torch
+    in DIR (default this checkout), saved and held against another tree's
+    (phase_outputs)."""
     import argparse
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--ab", nargs="+", metavar="TAG=SRC_DIR")
     ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--outputs", metavar="FILE")
+    ap.add_argument("--tree", metavar="DIR", default=ROOT)
+    ap.add_argument("--against", metavar="FILE")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    kt, block_ell, smi = phase_build()
+    kt, block_ell, smi = timed("build", phase_build, os.path.abspath(args.tree))
     kt.globals.precision("highest")
     name = torch.cuda.get_device_name(0)
     rows = None
-    if args.ab:
+    if args.outputs:
+        phase_outputs(kt, args.outputs, args.against)
+    elif args.ab:
         versions = [(tag, build_version(block_ell, os.path.abspath(d)))
                     for tag, d in (a.split("=", 1) for a in args.ab)]
         versions.insert(1, ("change", {n: block_ell._LIBS[n] for n in AB_LIBS}))
@@ -1140,17 +1438,20 @@ def main(argv=None):
         card, peaks = bk.card_peaks(name)
         log("[build] device %s (%d visible); bounds use %s data-sheet rates %s"
             % (name, torch.cuda.device_count(), card, json.dumps(peaks)))
-        phase_parity(block_ell)
-        paths, launches = phase_main_allconv(kt, block_ell)
-        vgg_paths, vgg_launches = phase_main_vgg(kt, block_ell)
+        timed("parity", phase_parity, block_ell)
+        paths, launches = timed("slice 1", phase_main_allconv, kt, block_ell)
+        vgg_paths, vgg_launches = timed("slice 2 (VGG orth)", phase_main_vgg, kt, block_ell)
         paths.update(vgg_paths)
-        bench_launches = phase_bench(block_ell, bk)
-        total = {n: launches[n] + vgg_launches[n] + bench_launches[n]
-                 for n in block_ell.ENTRIES}
-        log("[main] launches by path: %s" % json.dumps(
-            {"slice 1": launches, "slice 2 (VGG)": vgg_launches,
-             "slice 3 (bench)": bench_launches}))
-        rows = phase_kernels(block_ell, bk, paths, total, peaks)
+        bench_launches = timed("slice 3 (bench)", phase_bench, block_ell, bk)
+        by_path = {"slice 1": launches, "slice 2 (VGG)": vgg_launches,
+                   "slice 3 (bench)": bench_launches,
+                   "slice 6 (train)": timed("slice 6 (train)", phase_train, kt, block_ell),
+                   "slice 6 (tiled)": timed("slice 6 (tiled)", phase_tiled, kt, block_ell),
+                   "slice 6 (VGG identity)": timed("slice 6 (VGG identity)",
+                                                   phase_vgg_identity, kt, block_ell)}
+        total = {n: sum(p[n] for p in by_path.values()) for n in block_ell.ENTRIES}
+        log("[main] launches by path: %s" % json.dumps(by_path))
+        rows = timed("kernels", phase_kernels, block_ell, bk, paths, total, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))
     print(smi)
     if rows is not None:

@@ -17,10 +17,16 @@ Quickstart:
                                            blocksize=8, seed=0, device="cuda")
     y = knet.forward(sensor.fromtensor(x).encrypt().tensor())
 
+The paper's workflow runs end to end: train a source net
+(``train.train`` on ``datasets``), key it, check it on ciphertext
+(``train.validate`` with the secret sensor and keyed net), publish it
+(``serialize.save_keynet``) and serve it elsewhere (``load_keynet``).
+
 Entry points take ``device=`` (default "cuda") and raise without a card
 unless device="cpu" is given.
 """
 
+from .version import __version__
 from . import globals
 globals.tune_allocator()  # warm-heap allocator policy (see globals.tune_allocator)
 from . import util
@@ -29,16 +35,21 @@ from . import native
 from . import toeplitz
 from . import blockpermute
 from . import keys
+from . import fiberbundle
+from . import visualize
 from . import ops
 from . import layer
 from . import models
 from . import system
+from . import train
+from . import datasets
 from . import serialize
 from . import profiling
 
 from .keys import keygen
 from .layer import KeyedLayer
-from .system import (KeyedModel, KeyedSensor, PublicKeyedSensor, Keynet,
-                     IdentityKeynet, PermutationKeynet, StochasticKeynet,
-                     layergen, fuse_conv2d_and_bn)
-from .serialize import load_keynet
+from .system import (KeyedModel, KeyedSensor, PublicKeyedSensor, OpticalFiberBundle,
+                     Keynet, IdentityKeynet, PermutationKeynet, StochasticKeynet,
+                     TiledIdentityKeynet, TiledPermutationKeynet, TiledOrthogonalKeynet,
+                     OpticalFiberBundleKeynet, layergen, fuse_conv2d_and_bn)
+from .serialize import load_keynet, save_keynet

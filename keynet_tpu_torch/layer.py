@@ -16,7 +16,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from .globals import vprint, GLOBAL
+from .globals import vprint, GLOBAL, precision
 from .toeplitz import toeplitz_conv2d, toeplitz_avgpool2d
 from .homogeneous import affine_to_linear_matrix
 from .ops.operators import (materialize, DenseOp, EllOp, PermutedBlockSparseOp,
@@ -399,6 +399,7 @@ class KeyedLayer:
     # --------------------------------------------------------------- runtime
     def forward(self, x):
         """x: (N, D_in+1) homogeneous batch on the op's device -> (N, D_out+1)."""
+        precision()
         y = self._op.apply(torch.as_tensor(x, dtype=torch.float32,
                                            device=self._op.device))
         return torch.clamp_min(y, 0.0) if self._relu else y

@@ -175,7 +175,9 @@ class Model:
     # ----------------------------------------------------------- inference
     def forward(self, x, params=None, device=None):
         """Plain (un-keyed) source-model forward; x: (N,C,H,W) tensor or
-        array.  Runs on ``device``, else on x's device (the CPU for numpy)."""
+        array.  Runs on ``device``, else on x's device (the CPU for numpy).
+        Numpy params move to that device; tensor params (the trainer's,
+        train.py) pass through as they are, so autograd reaches them."""
         params = self.params if params is None else params
         precision()
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
@@ -183,6 +185,8 @@ class Model:
         dev = x.device
 
         def t(a):
+            if torch.is_tensor(a):
+                return a
             return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
         for l in self.layers:
             if isinstance(l, Conv2d):
@@ -200,10 +204,10 @@ class Model:
                 p = params[l.name]
                 x = torch.matmul(x, t(p["weight"]).T) + t(p["bias"])
             elif isinstance(l, BatchNorm2d):
-                p = params[l.name]
-                scale = p["weight"] / np.sqrt(p["running_var"] + l.eps)
-                x = x * t(scale)[None, :, None, None] + \
-                    t(p["bias"] - p["running_mean"] * scale)[None, :, None, None]
+                p = {k: t(v) for k, v in params[l.name].items()}
+                scale = p["weight"] / torch.sqrt(p["running_var"] + l.eps)
+                x = x * scale[None, :, None, None] + \
+                    (p["bias"] - p["running_mean"] * scale)[None, :, None, None]
             elif isinstance(l, Dropout):
                 pass  # identity at inference
             else:

@@ -7,9 +7,9 @@ memory:
   * DenseOp  — one matmul.  Best whenever the dense footprint is small.
   * BlockSparseOp — Block-ELL: (TM, TN) tiles, only nonzero tiles stored,
     deduplicated by content, each tile-row padded to the max tile count.
-    On a CUDA tensor the slot walk and the periodic mid-section are the
-    hand-written kernels in ops/block_ell.py; on a CPU tensor their plain
-    PyTorch versions.
+    On a CUDA tensor with TM and TN multiples of 128 the slot walk and the
+    periodic mid-section are the hand-written kernels in ops/block_ell.py;
+    other tiles and CPU tensors take their gather + einsum (block_ell_route).
   * EllOp    — row-wise fixed-K scalar sparse (gather + weighted reduce).
   * ChannelBroadcastOp — I_C ⊗ M for keyed pools with per-channel-identical
     keys, M any of the above.
@@ -45,6 +45,23 @@ def _t(a, dtype=None):
 def tile_dtype():
     return torch.bfloat16 if GLOBAL.get("TILE_DTYPE") == "bfloat16" \
         else torch.float32
+
+
+def block_ell_route(device_type, TM, TN):
+    """How a Block-ELL apply runs its slot walk and periodic mid-section,
+    decided before any launch from the device type and the tile shape alone,
+    as keynet_tpu gates its Pallas kernels (keynet_tpu/ops/operators.py:515,
+    :559): "plain" (the kernels' plain versions) on the CPU; off the CPU
+    "kernel" (the CUDA kernels of ops/block_ell.py, whose wrappers launch on
+    a CUDA device and raise elsewhere) for TM and TN multiples of 128, else
+    "einsum".  "plain" and "einsum" run the same gather + einsum with f32
+    accumulation (keynet_tpu/ops/operators.py:453-482); the kernel wrappers
+    still refuse other tiles."""
+    if device_type == "cpu":
+        return "plain"
+    if TM % 128 == 0 and TN % 128 == 0:
+        return "kernel"
+    return "einsum"
 
 
 class LinearOp:
@@ -189,12 +206,13 @@ class BlockSparseOp(LinearOp):
       y[:, r] = sum_k tiles[tile_ids[r,k]] @ x[:, col_blk[r,k]]
 
     ``period=(s, P, R)`` records row-block periodicity (tile_ids rows
-    s+rho+j*P identical for j in [0,R)); on a CUDA tensor the periodic rows
-    launch the periodic kernel (ops/block_ell.periodic_block_ell_matvec),
-    which reads each tile through tile_ids, and on a CPU tensor they apply
-    as one einsum over the period's tiles, expanded once (``_Texp``, kept
-    only beside CPU tiles).  Non-periodic ops whose rows repeat in arbitrary
-    order get a grouped-row plan (find_row_groups).
+    s+rho+j*P identical for j in [0,R)); where block_ell_route gives
+    "kernel" the periodic rows launch the periodic kernel
+    (ops/block_ell.periodic_block_ell_matvec), which reads each tile through
+    tile_ids, and elsewhere they apply as one einsum over the period's
+    tiles, expanded once (``_Texp``, not kept beside kernel-routed tiles).
+    Non-periodic ops whose rows repeat in arbitrary order get a grouped-row
+    plan (find_row_groups).
     """
     _tensors = ("tiles", "tile_ids", "col_blk", "_rgroup_inv")
 
@@ -252,15 +270,17 @@ class BlockSparseOp(LinearOp):
 
     def _sync_texp(self):
         """Keep the period's expanded tile set tiles[tile_ids[s:s+P]]
-        (P, KB, TM, TN) where the plain periodic einsum uses it: beside CPU
-        tiles, within GLOBAL['PERIODIC_EXPAND_BYTES'].  The expansion is the
-        TPU's way round a per-forward gather; the CUDA kernel reads tiles
-        through tile_ids, so none is kept beside CUDA tiles."""
-        if self.period is None or self.tiles.device.type != "cpu" \
+        (P, KB, TM, TN) where the periodic einsum uses it (block_ell_route
+        is not "kernel"), within GLOBAL['PERIODIC_EXPAND_BYTES'].  The
+        expansion is the TPU's way round a per-forward gather; the CUDA
+        kernel reads tiles through tile_ids, so none is kept beside
+        kernel-routed tiles."""
+        if self.period is None \
+                or block_ell_route(self.tiles.device.type, *self.tileshape) == "kernel" \
                 or self._expand_bytes() > int(GLOBAL.get("PERIODIC_EXPAND_BYTES",
                                                          512 << 20)):
             self._Texp = None
-        elif self._Texp is None:
+        elif self._Texp is None or self._Texp.device != self.tiles.device:
             s, P, _ = self.period
             self._Texp = self.tiles[self.tile_ids[s:s + P].long()]
 
@@ -345,8 +365,8 @@ class BlockSparseOp(LinearOp):
         """Traffic model: grouped-row apply vs the slot walk it replaces.
         Grouped gathers each distinct pattern's tiles once (write+read) plus
         the per-slot x blocks and a row-block reorder of the output; the
-        CUDA slot walk reads a tile per slot, the plain gather+einsum writes
-        and reads it."""
+        CUDA slot walk reads a tile per slot, the gather+einsum writes and
+        reads it."""
         TM, TN = self.tileshape
         it = self.tiles.element_size()
         tile_b = TM * TN * it
@@ -355,7 +375,7 @@ class BlockSparseOp(LinearOp):
         distinct_slots = sum(G * KB for _, G in self._rgroup_meta)
         x_b = slots * B * TN * it
         grouped = 2 * distinct_slots * tile_b + x_b + 2 * B * n_rb * TM * 4
-        alt = slots * tile_b + x_b if device.type == "cuda" \
+        alt = slots * tile_b + x_b if block_ell_route(device.type, TM, TN) == "kernel" \
             else 2 * slots * tile_b + x_b
         return grouped < alt
 
@@ -382,22 +402,24 @@ class BlockSparseOp(LinearOp):
         return y.reshape(B, n_rb * TM)
 
     def _apply_rows(self, x, a, b):
-        """Slot walk for row-blocks [a, b) on the padded (B, n_cb*TN) x:
-        the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor
-        (ops/block_ell.py).  Returns (B, (b-a)*TM) f32."""
-        from .block_ell import route
-        TM = self.tileshape[0]
-        kfn = route(self.tile_ids.shape[1])
+        """Slot walk for row-blocks [a, b) on the padded (B, n_cb*TN) x: the
+        CUDA kernel where block_ell_route gives "kernel", else the gather +
+        einsum of its plain version (ops/block_ell.py).  Returns
+        (B, (b-a)*TM) f32."""
+        from .block_ell import block_ell_plain, route
+        TM, TN = self.tileshape
+        kfn = route(self.tile_ids.shape[1]) \
+            if block_ell_route(x.device.type, TM, TN) == "kernel" else block_ell_plain
         return kfn(x, self.tiles, self.tile_ids[a:b], self.col_blk[a:b],
                    (b - a) * TM)
 
     def _apply_periodic_mid(self, x):
         """Rows [s, s+P*R) on the padded (B, n_cb*TN) x: the periodic kernel
-        on a CUDA tensor, its plain einsum over the expanded period tiles on
-        a CPU tensor (ops/block_ell.py).  Returns (B, P*R*TM) f32."""
+        where block_ell_route gives "kernel", else its plain einsum over the
+        expanded period tiles (ops/block_ell.py).  Returns (B, P*R*TM) f32."""
         from .block_ell import periodic_block_ell_matvec, periodic_block_ell_plain
         s, P, R = self.period
-        if x.device.type == "cpu":
+        if block_ell_route(x.device.type, *self.tileshape) != "kernel":
             return periodic_block_ell_plain(x, self.tiles, self.tile_ids,
                                             self.col_blk, s, P, R, texp=self._Texp)
         return periodic_block_ell_matvec(x, self.tiles, self.tile_ids,

@@ -1,11 +1,14 @@
-"""Loading keyed systems saved by keynet_tpu.serialize.save_keynet.
+"""Saving and loading keyed systems, on keynet_tpu's bundle schema.
 
 A bundle is one .npz: every device operator's arrays plus a JSON manifest
 (format, shapes, layer order, relu plan) and, with include_keys, the private
-keys as CSR arrays.  ``load_keynet`` reads the same manifest and op kinds as
-keynet_tpu/serialize.py:89-145, :193-232, so a bundle converted by the JAX
-package serves in the port, periodic Block-ELL cores (their ``period``) and
-channel-broadcast pools included.  Saving is not ported yet.
+keys as CSR arrays.  Private keys are stored only when ``include_keys=True``
+— a public release stores none, like KeyedModel.public().  ``save_keynet``
+writes the array names, dtypes and manifest of keynet_tpu/serialize.py:24-86,
+:147-190 (bf16 tiles as their uint16 bit pattern, ``period`` in the meta,
+the expanded period tiles not saved), and ``load_keynet`` reads the same
+schema (:89-145, :193-232), so a bundle from either package serves in the
+other.
 """
 
 import json
@@ -19,6 +22,121 @@ from .layer import KeyedLayer
 from .ops.operators import (DenseOp, BlockSparseOp, EllOp, PermutedBlockSparseOp,
                             ChainedOp, RepeatedBlockDiagOp, KroneckerOp, TapSumOp,
                             ChannelBroadcastOp, DirectConvOp)
+
+
+def _np(t, int32=False):
+    """A tensor as the numpy array keynet_tpu stores: on the host, integer
+    index arrays as int32 (JAX's default integer width)."""
+    a = t.detach().cpu()
+    if int32 and a.dtype == torch.int64:
+        a = a.to(torch.int32)
+    return a.numpy()
+
+
+def _op_state(op):
+    """(kind, arrays, meta) of an op, as keynet_tpu/serialize.py:24-86."""
+    if isinstance(op, DenseOp):
+        return "dense", {"W": _np(op.W)}, {"nnz": op.nnz()}
+    if isinstance(op, DirectConvOp):
+        arrs = {"weight": _np(op.weight)}
+        if op.bias is not None:
+            arrs["bias"] = _np(op.bias)
+        return "directconv", arrs, \
+            {"inshape": op.inshape, "outshape": op.outshape,
+             "stride": op.stride, "groups": op.groups, "nnz": op.nnz()}
+    if isinstance(op, BlockSparseOp):
+        bf16 = op.tiles.dtype == torch.bfloat16
+        # npz has no bfloat16: bf16 tiles are stored as their uint16 bit pattern
+        arrs = {"tiles": _np(op.tiles.view(torch.int16)).view(np.uint16) if bf16
+                else _np(op.tiles),
+                "tile_ids": _np(op.tile_ids), "col_blk": _np(op.col_blk)}
+        return "block", arrs, \
+            {"shape": op.shape, "tileshape": op.tileshape, "nnz": op.nnz(),
+             "period": op.period, "tile_dtype": "bfloat16" if bf16 else "float32"}
+    if isinstance(op, PermutedBlockSparseOp):
+        kind, arrs, meta = _op_state(op.inner)
+        arrs.update({"perm_in": _np(op.perm_in, True),
+                     "perm_out_pos": _np(op.perm_out_pos, True)})
+        meta["outer_shape"] = op.shape
+        meta["layout_in"] = op.layout_in
+        meta["layout_out"] = op.layout_out
+        return "permuted_block", arrs, meta
+    if isinstance(op, EllOp):
+        return "ell", {"cols": _np(op.cols, True), "vals": _np(op.vals)}, \
+            {"shape": op.shape, "nnz": op.nnz()}
+    if isinstance(op, RepeatedBlockDiagOp):
+        return "repblockdiag", {"F": _np(op.F), "bias": _np(op.bias)}, \
+            {"shape": op.shape, "nnz": op.nnz()}
+    if isinstance(op, KroneckerOp):
+        arrs = {"Cm": _np(op.Cm), "Sm": _np(op.Sm), "bias": _np(op.bias)}
+        if op.perm_in is not None:
+            arrs["perm_in"] = _np(op.perm_in, True)
+        if op.perm_out is not None:
+            arrs["perm_out"] = _np(op.perm_out, True)
+        return "kron", arrs, {"shape": op.shape, "nnz": op.nnz()}
+    if isinstance(op, TapSumOp):
+        return "tapsum", {"K": _np(op.K), "S": _np(op.S), "bias": _np(op.bias)}, \
+            {"shape": op.shape, "nnz": op.nnz()}
+    if isinstance(op, ChannelBroadcastOp):
+        k, a, m = _op_state(op.inner)
+        arrs = {"in_" + kk: vv for kk, vv in a.items()}
+        arrs["bias_sp"] = _np(op.bias_sp)
+        return "chanbcast", arrs, \
+            {"inner_kind": k, "inner_meta": _jsonable(m), "C": op.C,
+             "nnz": op.nnz()}
+    if isinstance(op, ChainedOp):
+        arrs, parts = {}, []
+        for i, sub in enumerate(op.ops):
+            k, a, m = _op_state(sub)
+            for kk, vv in a.items():
+                arrs["c%d_%s" % (i, kk)] = vv
+            parts.append({"kind": k, "meta": _jsonable(m)})
+        return "chain", arrs, {"parts": parts, "shape": op.shape}
+    raise TypeError(type(op))
+
+
+def _jsonable(meta):
+    return {k: list(v) if isinstance(v, tuple) else v for k, v in meta.items()}
+
+
+def _csr_arrays(prefix, M):
+    M = scipy.sparse.csr_matrix(M)
+    return {prefix + "_data": M.data, prefix + "_indices": M.indices,
+            prefix + "_indptr": M.indptr,
+            prefix + "_shape": np.asarray(M.shape)}
+
+
+def save_keynet(path, knet, sensor=None, include_keys=False):
+    """Serialize a KeyedModel (and optionally its sensor keypair) to .npz
+    (keynet_tpu/serialize.py:160-190); returns ``path``."""
+    arrays, manifest = {}, {"layers": [], "outshape": list(knet._outshape),
+                            "include_keys": bool(include_keys)}
+    for name, l in knet.layers().items():
+        assert "__" not in name, \
+            "layer name %r: '__' is the array-key separator" % name
+        if l == "relu":
+            manifest["layers"].append({"name": name, "kind": "relu"})
+            continue
+        kind, arrs, meta = _op_state(l.op())
+        for k, v in arrs.items():
+            arrays["layer_%s__%s" % (name, k)] = v
+        manifest["layers"].append({
+            "name": name, "kind": kind, "meta": _jsonable(meta),
+            "relu": bool(l._relu), "repr": l._repr, "layertype": l._layertype,
+            "shape": list(l.shape), "nnz": l.nnz()})
+    if include_keys:
+        if knet._imagekey is not None:
+            arrays.update(_csr_arrays("imagekey", knet._imagekey))
+        if knet._embeddingkey is not None:
+            arrays.update(_csr_arrays("embeddingkey", knet._embeddingkey))
+        if sensor is not None:
+            arrays.update(_csr_arrays("sensor_encrypt", sensor._encryptkey))
+            arrays.update(_csr_arrays("sensor_decrypt", sensor._decryptkey))
+            manifest["sensor_inshape"] = list(sensor._inshape[1:])
+    arrays["__manifest__"] = np.frombuffer(
+        json.dumps(manifest).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+    return path
 
 
 def _tiles(arrs, meta):

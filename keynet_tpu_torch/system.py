@@ -14,6 +14,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
+from . import fiberbundle
 from .globals import vprint, precision, resolve_device
 from .util import find_closest_positive_divisor  # noqa: F401  (public re-export)
 from .homogeneous import affine_to_linear, linear_to_affine, mat2gray_key
@@ -226,6 +227,7 @@ class KeyedModel:
         """The keyed forward on an encrypted homogeneous batch already on the
         device: every layer's op with ReLU between layers
         (keynet_tpu/system.py:256-270).  Returns the cipher output."""
+        precision()
         self._build()
         i = 0
         for stage in self._stages:
@@ -242,7 +244,6 @@ class KeyedModel:
         """Run the keynet on an encrypted homogeneous batch (N, D+1) and return
         the decrypted affine output reshaped to (N, *outshape) — or the raw
         cipher embedding when no key is supplied/held (public release)."""
-        precision()
         y = self.run(torch.as_tensor(img_cipher, dtype=torch.float32,
                                      device=self._device))
         key = self._embeddingkey if outkey is _DEFAULT_KEY else outkey
@@ -258,6 +259,7 @@ class KeyedModel:
         key = self._embeddingkey if outkey is _DEFAULT_KEY else outkey
         if key is None:
             return y_cipher
+        precision()
         if key is self._embeddingkey:
             if self._embeddingkey_op is None:
                 self._embeddingkey_op = materialize(
@@ -379,6 +381,11 @@ class KeyedSensor(KeyedLayer):
 
     toimage = asimage
 
+    def show(self):
+        from PIL import Image
+        Image.fromarray(self.asimage()).show()
+        return self
+
     def save(self, outfile="keynet_cipher.png"):
         """Save the encrypted image as a PNG by composing a mat2gray
         normalization key into the decrypt key (reference keynet/system.py:173-181).
@@ -412,7 +419,6 @@ class KeyedSensor(KeyedLayer):
     def encrypt(self):
         assert self.isloaded(), "load image first"
         if not self.isencrypted():
-            precision()
             self._tensor = self.forward(affine_to_linear(self._tensor))
         return self
 
@@ -451,6 +457,38 @@ class PublicKeyedSensor(KeyedSensor):
         if not self.isencrypted():
             self._tensor = self.forward(affine_to_linear(self._tensor))
         return self._tensor
+
+
+class OpticalFiberBundle(KeyedSensor):
+    """Sensor whose load() runs the fiber-bundle optical simulation
+    (reference keynet/system.py:287-300; keynet_tpu/system.py:492-521)."""
+
+    def __init__(self, inshape=(3, 512, 512), keypair=None, device="cuda"):
+        if keypair is None:
+            keypair = keygen(inshape)
+        super().__init__(inshape, keypair, device=device)
+
+    def load(self, imgfile):
+        from PIL import Image
+        N, C, H, W = self._inshape
+        im = Image.open(imgfile).convert("RGB")
+        scale = max(H, W) / max(im.size)
+        im = im.resize((max(1, round(im.size[0] * scale)), max(1, round(im.size[1] * scale))))
+        arr = np.asarray(im)
+        # center crop to (H, W)
+        i0 = max(0, (arr.shape[0] - H) // 2)
+        j0 = max(0, (arr.shape[1] - W) // 2)
+        arr = arr[i0:i0 + H, j0:j0 + W]
+        sim = fiberbundle.simulation(arr, h_xtalk=0.05, v_xtalk=0.05,
+                                     fiber_core_x=16, fiber_core_y=16,
+                                     do_camera_noise=True)
+        self._sim_image = np.uint8(np.clip(sim, 0, 255))
+        self._tensor = self._as_device(self._sim_image.transpose(2, 0, 1)[None]
+                                       .astype(np.float32))
+        return self
+
+    def image(self):
+        return self._sim_image
 
 
 # -------------------------------------------------------------------- factories
@@ -520,3 +558,48 @@ def StochasticKeynet(inshape, net, alpha=2, blocksize=8, seed=None,
                   local_photometric="uniform_random_affine",
                   beta=kwargs.pop("beta", 1.0), gamma=kwargs.pop("gamma", 1.0),
                   seed=seed, device=device, **kwargs)
+
+
+def TiledIdentityKeynet(inshape, net, tilesize, seed=None, device="cuda"):
+    return Keynet(inshape, net, tileshape=(tilesize, tilesize), seed=seed,
+                  device=device)
+
+
+def TiledPermutationKeynet(inshape, net, tilesize, seed=None, device="cuda"):
+    return Keynet(inshape, net, local_geometric="permutation",
+                  tileshape=(tilesize, tilesize), blocksize=tilesize, seed=seed,
+                  device=device)
+
+
+def TiledOrthogonalKeynet(inshape, net, tilesize, hierarchical_permute_at_level=(0, 1),
+                          seed=None, device="cuda"):
+    return Keynet(inshape, net, tileshape=(tilesize, tilesize),
+                  global_geometric="hierarchical_permutation",
+                  hierarchical_blockshape=(2, 2),
+                  hierarchical_permute_at_level=hierarchical_permute_at_level,
+                  global_photometric="identity",
+                  local_geometric="givens_orthogonal", alpha=tilesize, blocksize=tilesize,
+                  local_photometric="uniform_random_affine", beta=0.1, gamma=100.0,
+                  memoryorder="block", seed=seed, device=device)
+
+
+def OpticalFiberBundleKeynet(inshape, net, seed=None, device="cuda", **keygen_kwargs):
+    """Fiber-bundle sensor + keyed model (keynet_tpu/system.py:608-621, the
+    working version of the reference's factory at keynet/system.py:512-516);
+    the rng streams are seeded as the JAX package seeds them."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    mask_rng = np.random.default_rng(
+        np.random.SeedSequence(entropy=seed, spawn_key=(1,)) if seed is not None
+        else None)
+
+    def f_keypair(layername, shape):
+        return keygen(shape, rng=rng, **keygen_kwargs)
+
+    def f_layergen(module, inshape_, outshape_, A, Ainv, params=None):
+        return layergen(module, inshape_, outshape_, A, Ainv, params=params, rng=mask_rng)
+
+    sensor = OpticalFiberBundle(inshape, f_keypair("input", inshape), device=device)
+    model = KeyedModel(net, inshape, sensor.key(), f_keypair, f_layergen,
+                       device=device) if net is not None else None
+    return sensor, model

@@ -188,3 +188,137 @@ def test_periodic_kernel_matches_plain_on_card(R, B):
         torch.cuda.synchronize()
         _close(y, ref, tol)
         assert bool((y[:, TM:2 * TM] == 0).all())
+
+
+# --------------------------------------------------- keyed nets on the card
+
+class _Globals:
+    """Set keynet_tpu_torch GLOBAL keys, restored on exit."""
+
+    def __init__(self, **keys):
+        self.keys = keys
+
+    def __enter__(self):
+        from keynet_tpu_torch.globals import GLOBAL
+        self.saved = {k: GLOBAL.get(k) for k in self.keys}
+        GLOBAL.update(self.keys)
+
+    def __exit__(self, *exc):
+        from keynet_tpu_torch.globals import GLOBAL
+        for k, v in self.saved.items():
+            if v is None:
+                GLOBAL.pop(k, None)
+            else:
+                GLOBAL[k] = v
+
+
+def _small_tile_keynet(kt, t, device):
+    """Keynet(tileshape=(t, t)) on a 3x32x32 net whose conv2 (and at t = 4
+    conv1) packs as Block-ELL with t x t tiles; t = 16 keys a narrow
+    VGG-shaped 3x56x56 net into periodic cores of 16 x 16 tiles."""
+    m = kt.models
+    if t == 16:
+        net = m.Model([m.Conv2d("conv1", 3, 8, 3), m.ReLU("relu1"),
+                       m.Conv2d("conv2", 8, 8, 3), m.ReLU("relu2"),
+                       m.AvgPool2d("pool2", 3, 2),
+                       m.Conv2d("conv3", 8, 8, 3), m.ReLU("relu3"),
+                       m.Linear("fc4", 8 * 28 * 28, 10)], inshape=(3, 56, 56), seed=5)
+        with _Globals(STREAM_NNZ=1000, KRON_FACTORED="never", POOL_FACTOR_MIN_N=1):
+            s, k = kt.Keynet((3, 56, 56), net, tileshape=(16, 16), blocksize=16,
+                             local_geometric="givens_orthogonal", alpha=2.0,
+                             local_photometric="uniform_random_affine", beta=1.0,
+                             gamma=1.0, seed=0, device=device)
+        return net, s, k
+    net = m.Model([m.Conv2d("conv1", 3, 4, 3), m.ReLU("relu1"),
+                   m.Conv2d("conv2", 4, 4, 3), m.ReLU("relu2"),
+                   m.AvgPool2d("pool2", 3, 2),
+                   m.Linear("fc1", 4 * 16 * 16, 10)], inshape=(3, 32, 32), seed=1)
+    with _Globals(DENSE_MAX_BYTES=1 << 16):
+        s, k = kt.Keynet((3, 32, 32), net, tileshape=(t, t), blocksize=t,
+                         local_photometric="uniform_random_affine", beta=1.0, gamma=1.0,
+                         seed=0, device=device)
+    return net, s, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 32, 16])
+def test_sub128_tiles_on_card(t):
+    """Block-ELL cores with t x t tiles take the einsum on the card (they
+    raised in the kernel wrappers before routing by tile shape): keyed ==
+    source within 1e-5·max(1, scale), and the keyed output of the card
+    equals the CPU's (the plain path) within the same bound; t = 16 runs
+    periodic mid-sections at B = 3."""
+    _needs_card()
+    import keynet_tpu_torch as kt
+    from keynet_tpu_torch.ops.operators import PermutedBlockSparseOp, block_ell_route
+    net, s, k = _small_tile_keynet(kt, t, "cuda")
+    _, s_cpu, k_cpu = _small_tile_keynet(kt, t, "cpu")
+    cores = [l.op().inner for l in k.layers().values()
+             if l != "relu" and isinstance(l.op(), PermutedBlockSparseOp)]
+    assert cores and all(c.tileshape == (t, t) for c in cores)
+    assert all(block_ell_route("cuda", *c.tileshape) == "einsum" for c in cores)
+    if t == 16:
+        assert any(c.period is not None for c in cores)
+    B = 3 if t == 16 else 64
+    x = np.random.default_rng(t).standard_normal((B, *net.inshape)).astype(np.float32)
+    y = k.forward(s.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor())
+    ys = net.forward(torch.from_numpy(x).cuda())
+    _close(y, ys, 1e-5)
+    y_cpu = k_cpu.forward(s_cpu.fromtensor(x).encrypt().tensor())
+    _close(y.cpu(), y_cpu, 1e-5)
+
+
+RUN_FIRST = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import keynet_tpu_torch as kt
+net = kt.models.LeNet_AvgPool(seed=0)
+sensor, knet = kt.IdentityKeynet((1, 28, 28), net, seed=0, device="cuda")
+x = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 1, 28, 28))
+                     .astype(np.float32)).cuda()
+xc = torch.cat([x.reshape(64, -1), torch.ones(64, 1, device="cuda")], dim=1)
+y = knet.run(xc)[:, :-1]           # the first computation of the process
+ys = net.forward(x)
+err = float((y - ys).abs().max())
+print(err, float(ys.abs().max()))
+assert err <= 1e-5 * max(1.0, float(ys.abs().max())), err
+"""
+
+
+@pytest.mark.cuda
+def test_run_first_in_fresh_process():
+    """KeyedModel.run on an identity-keyed net (DirectConvOp convs), called
+    before anything else in a fresh process, where torch's cuDNN default is
+    TF32: keyed == source within 1e-5·max(1, scale)."""
+    _needs_card()
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", RUN_FIRST, root], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.cuda
+def test_save_load_on_card_bitwise(tmp_path):
+    """save_keynet, then load_keynet(device="cuda"): the forward is bitwise
+    equal to the in-memory keyed net's (StochasticKeynet on a narrow spec:
+    Block-ELL slot walk, Kronecker/TapSum chains, dense)."""
+    _needs_card()
+    import keynet_tpu_torch as kt
+    m = kt.models
+    net = m.Model([m.Conv2d("conv1", 3, 8, 3), m.ReLU("relu1"),
+                   m.Conv2d("conv2", 8, 8, 3), m.ReLU("relu2"),
+                   m.Linear("fc1", 8 * 16 * 16, 10)], inshape=(3, 16, 16), seed=1)
+    with _Globals(DENSE_MAX_BYTES=1 << 20, ELL_MAX_K=32):
+        sensor, knet = kt.StochasticKeynet((3, 16, 16), net, alpha=2, blocksize=8, seed=0,
+                                           device="cuda")
+    x = np.random.default_rng(9).standard_normal((64, 3, 16, 16)).astype(np.float32)
+    xc = sensor.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor()
+    p = str(tmp_path / "k.npz")
+    kt.save_keynet(p, knet, sensor=sensor, include_keys=True)
+    s2, k2 = kt.load_keynet(p, device="cuda")
+    assert torch.equal(knet.forward(xc), k2.forward(xc))
