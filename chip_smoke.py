@@ -70,6 +70,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
                keyed == source;
                [vgg-identity] the identity VGG-16 at 3x224x224 on
                DirectConvOp and DenseOp, keyed == source at B=1, 8 and 32;
+               slice 7, [vgg-stochastic] (counts set to 0 just before and
+               read just after the forwards): VGG16(seed=5) at 3x224x224
+               keyed with the stochastic recipe of
+               scripts/run_vgg_stochastic_224.py (hierarchical permutation
+               at levels 0, 1, 2, doubly-stochastic local keys, local affine,
+               blocksize 14, f32 tiles, full depth):
+               conversion seconds per layer, peak host RSS, nnz,
+               device_bytes() beside torch.cuda.memory_allocated(), every
+               layer's route against keynet_tpu's (STOCH_ROUTES), each
+               Block-ELL core and how it applies at B=1, 8, 32 (grouped-row
+               einsum, slot walk, periodic kernel); keyed == source at B=1, 8
+               and 32 within 1e-5*max(1, scale); every entry the cores route
+               to must have launched; per-link ms at B=1 and 32 and a trace of
+               the B=1 forward;
   7. kernels   one row per Pallas function: each slot-walk entry at the
                shape its main path gave it (the depth-1 entry, which no core
                routes to on this card, at the shape the JAX package routes
@@ -81,8 +95,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
                with the most period slots at B=1, 8 and 32 (at B=1 also
                with the shared memory of one block an SM), and the slot
                walk on that core's head and tail rows at B=1, 8, 32, xres
-               and grid at B=1: kernel, plain version and library times
-               (BSR torch.sparse.mm; torch.bmm over pre-gathered operands
+               and grid at B=1, and the kernel of the stochastic VGG's
+               largest kernel-routed core at B=1, 8 and 32: kernel, plain
+               version and library times (BSR torch.sparse.mm; torch.bmm over pre-gathered operands
                for the periodic kernel, gathers not timed) with CUDA events,
                the bound from the card's data-sheet rates, and for grid the
                tile copies it issued against the non-zero slots it walked.
@@ -100,8 +115,11 @@ depth-bench operand (phase_ab).
 
 converts the orth VGG-16 and the AllConvNet with the keynet_tpu_torch of
 DIR (default this checkout), saves their keyed outputs and forward times,
-and holds them against another tree's file (phase_outputs).  Each phase's
-seconds are logged as "[time] ...".
+and holds them against another tree's file (phase_outputs).
+
+    python3 chip_smoke.py --only vgg-stochastic
+
+builds, then runs the [vgg-stochastic] phase and its kernel row alone.  Each phase's seconds are logged as "[time] ...".
 """
 
 import json
@@ -407,9 +425,9 @@ def route_str(op):
     """An op's kind down its chain; a Block-ELL core with its (n_rb, KB),
     unique tiles, tile shape, period, block_ell_route on its device
     ("kernel" or "einsum") and whether it holds a grouped-row plan (whose
-    einsum it takes where _grouped_wins)."""
+    einsum it takes where _grouped_wins); an EllOp with its row length K."""
     from keynet_tpu_torch.ops.operators import (BlockSparseOp, ChainedOp,
-                                                ChannelBroadcastOp,
+                                                ChannelBroadcastOp, EllOp,
                                                 PermutedBlockSparseOp, block_ell_route)
     if isinstance(op, ChainedOp):
         return "Chain[%s]" % ", ".join(route_str(o) for o in op.ops)
@@ -421,6 +439,8 @@ def route_str(op):
             "" if c._rgroups is None else ", grouped-row plan")
     if isinstance(op, ChannelBroadcastOp):
         return "ChannelBroadcastOp(C=%d, %s)" % (op.C, route_str(op.inner))
+    if isinstance(op, EllOp):
+        return "EllOp(%d, %d, K=%d)" % (*op.shape, op.cols.shape[1])
     return "%s%s" % (type(op).__name__, tuple(op.shape))
 
 
@@ -576,6 +596,7 @@ def phase_main_vgg(kt, block_ell):
     """Slice 2: the Givens-orthogonal VGG-16 at 3x224x224 through kt.Keynet,
     keyed vs source at B=1, 8 and 32, with the launches read right after."""
     import torch
+    alloc0 = torch.cuda.memory_allocated()
     net, sensor, knet = vgg_keynet(kt)
     log("[vgg] route sensor: %s" % route_str(sensor.op()))
     for name, l in knet.layers().items():
@@ -594,6 +615,7 @@ def phase_main_vgg(kt, block_ell):
     log("[vgg] device_bytes: %d (keyed net on the card), sensor %d; the expanded "
         "period tiles keynet_tpu keeps besides (_Texp, within PERIODIC_EXPAND_BYTES): %d"
         % (knet.device_bytes(), sensor.device_bytes(), texp))
+    device_memory("vgg", "VGG16 orth", sensor, knet, alloc0)
 
     block_ell.reset_launches()
     xcs, forwards = {}, {}
@@ -781,10 +803,12 @@ def measure(block_ell, bk, fn, kw, model, xc, where, peaks):
                            inner.col_blk, x, where, peaks)
 
 
-def phase_kernels(block_ell, bk, paths, launches, peaks):
-    """One row per Pallas function (launches: summed over the main paths)."""
+def phase_kernels(block_ell, bk, paths, by_path, peaks):
+    """One row per Pallas function (launches: summed over the main paths,
+    and each path's count), and the stochastic VGG's kernel row."""
     import numpy as np
     import torch
+    launches = {n: sum(p[n] for p in by_path.values()) for n in block_ell.ENTRIES}
     knet, xcs = paths["allconv"]
     nk, xn = paths["narrow"]
     be = block_ell
@@ -794,7 +818,9 @@ def phase_kernels(block_ell, bk, paths, launches, peaks):
     def row(fn, source, line, result):
         rows[fn.__name__] = dict({"name": fn.__name__, "route": "cuda", "source": src + source,
                                   "replaces": "keynet_tpu/ops/pallas_kernels.py:%d" % line,
-                                  "launches": launches[fn.__name__]}, **result)
+                                  "launches": launches[fn.__name__],
+                                  "launches_by_path": {p: n[fn.__name__]
+                                                       for p, n in by_path.items()}}, **result)
 
     # each slot-walk entry at the shape its main path gave it; the depth-1
     # entry is routed by no core here, so it runs where the JAX package
@@ -861,6 +887,8 @@ def phase_kernels(block_ell, bk, paths, launches, peaks):
         log("[kernels] %s at VGG16 orth %s core head + tail rows, B=%d: %s"
             % (fn.__name__, name, B, json.dumps(total)))
     head_tail_staged(be, bk, vknet, vxcs[1], name, peaks)
+    if "vgg-stochastic" in paths:
+        stochastic_kernel_rows(be, bk, *paths["vgg-stochastic"], peaks)
     return [rows[n] for n in be.ENTRIES]
 
 
@@ -942,10 +970,10 @@ def bmm_library_ms(core, x):
     return ms, y
 
 
-def measure_periodic(block_ell, knet, xc, layer, peaks):
-    """The periodic kernel on ``layer``'s core fed the activations of
-    ``xc``: checked against the plain version, timed beside it and the
-    torch.bmm yardstick."""
+def measure_periodic(block_ell, knet, xc, layer, peaks, label="VGG16 orth"):
+    """The periodic kernel on ``layer``'s core of the net ``label`` fed the
+    activations of ``xc``: checked against the plain version, timed beside
+    it and the torch.bmm yardstick."""
     import torch
     core, x = core_input(knet, xc, layer)
     B = x.shape[0]
@@ -955,7 +983,7 @@ def measure_periodic(block_ell, knet, xc, layer, peaks):
     ref = block_ell.periodic_block_ell_plain(*args)
     torch.cuda.synchronize()
     err = float((y - ref).abs().max())
-    where = "VGG16 orth %s core %s, B=%d" % (layer, core.period, B)
+    where = "%s %s core %s, B=%d" % (label, layer, core.period, B)
     check(err, float(ref.abs().max()), TOL_F32, "periodic_block_ell_matvec at " + where)
     ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_matvec(*args), reps=10)
     plain_ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_plain(*args), reps=3)
@@ -1235,6 +1263,222 @@ def phase_vgg_identity(kt, block_ell):
     return launches
 
 
+# --------------------------------------------------------------- slice 7
+# The stochastic recipe of scripts/run_vgg_stochastic_224.py:39-46.
+STOCH_RECIPE = dict(global_geometric="hierarchical_permutation",
+                    hierarchical_blockshape=(2, 2), hierarchical_permute_at_level=(0, 1, 2),
+                    local_geometric="doubly_stochastic", alpha=2.0, blocksize=14,
+                    local_photometric="uniform_random_affine", beta=1.0, gamma=1.0,
+                    memoryorder="channel", seed=0)
+_KRON = "Chain[KroneckerOp, TapSumOp, KroneckerOp]"
+_SPLIT_KRON = "Chain[RepeatedBlockDiagOp, KroneckerOp, TapSumOp, KroneckerOp]"
+_SPLIT_MASKED = "Chain[RepeatedBlockDiagOp, EllOp, PermutedBlockSparseOp]"
+# keynet_tpu's route per layer for this recipe at 3x224x224 (route_kinds of
+# each layer's op): the masked streamed chains of conv1_1 and conv2_1 (the
+# dense-inverse split, the F2 EllOp mask factor, the core), conv3_1 on the
+# wide-range Kron gate, conv4_x/conv5_x Kron chains (split where the input
+# key has dense inverse blocks), the other convs streamed, the pools
+# channel-broadcast (ELL spatial factors where the output key carries the
+# global permutation: pool1_2, pool2_2), fc6-8 dense
+# (docs/SERVING.md:160-174, docs/STATUS_R3.md:34-37); the host code that
+# decides them is the JAX package's, held equal layer by layer at 3x56x56 by
+# tests/test_torch_vgg_stochastic.py.
+STOCH_ROUTES = {
+    "sensor": "BlockSparseOp",
+    "conv1_1": _SPLIT_MASKED, "conv1_2": "PermutedBlockSparseOp",
+    "pool1_2": "ChannelBroadcastOp[EllOp]",
+    "conv2_1": _SPLIT_MASKED, "conv2_2": "PermutedBlockSparseOp",
+    "pool2_2": "ChannelBroadcastOp[EllOp]",
+    "conv3_1": _SPLIT_KRON, "conv3_2": "PermutedBlockSparseOp",
+    "conv3_3": "PermutedBlockSparseOp", "pool3_3": "ChannelBroadcastOp[DenseOp]",
+    "conv4_1": _SPLIT_KRON, "conv4_2": _KRON, "conv4_3": _KRON,
+    "pool4_3": "ChannelBroadcastOp[DenseOp]",
+    "conv5_1": _SPLIT_KRON, "conv5_2": _KRON, "conv5_3": _KRON,
+    "pool5_3": "ChannelBroadcastOp[DenseOp]",
+    "fc6": "DenseOp", "fc7": "DenseOp", "fc8": "DenseOp"}
+
+
+def route_kinds(op):
+    """An op's link kinds, e.g. 'Chain[RepeatedBlockDiagOp, EllOp, ...]'."""
+    from keynet_tpu_torch.ops.operators import ChainedOp, ChannelBroadcastOp
+    if isinstance(op, ChainedOp):
+        return "Chain[%s]" % ", ".join(route_kinds(o) for o in op.ops)
+    if isinstance(op, ChannelBroadcastOp):
+        return "ChannelBroadcastOp[%s]" % route_kinds(op.inner)
+    return type(op).__name__
+
+
+def index_bytes_beyond_count(op):
+    """Bytes of the port's int64 index tensors past what device_bytes()
+    counts for them (keynet_tpu's count, which holds them as int32): the
+    layout permutations of PermutedBlockSparseOp, the grouped-row plan, and
+    the Kronecker gathers (uncounted in both packages)."""
+    from keynet_tpu_torch.ops.operators import (BlockSparseOp, ChainedOp, ChannelBroadcastOp,
+                                                KroneckerOp, PermutedBlockSparseOp)
+    if isinstance(op, ChainedOp):
+        return sum(index_bytes_beyond_count(o) for o in op.ops)
+    if isinstance(op, ChannelBroadcastOp):
+        return index_bytes_beyond_count(op.inner)
+    if isinstance(op, PermutedBlockSparseOp):
+        return 4 * (op.perm_in.numel() + op.perm_out_pos.numel()) \
+            + index_bytes_beyond_count(op.inner)
+    if isinstance(op, BlockSparseOp) and op._rgroups is not None:
+        return 4 * (sum(p.numel() + c.numel() for p, c in op._rgroups)
+                    + op._rgroup_inv.numel())
+    if isinstance(op, KroneckerOp):
+        return 8 * sum(p.numel() for p in (op.perm_in, op.perm_out) if p is not None)
+    return 0
+
+
+def device_memory(tag, label, sensor, knet, before):
+    """Print torch.cuda.memory_allocated() taken by a keyed net (sensor and
+    net; ``before`` is the count before either was built) beside
+    device_bytes() and the int64 index bytes that count leaves out."""
+    import torch
+    knet._build()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    counted = knet.device_bytes() + sensor.device_bytes()
+    extra = index_bytes_beyond_count(sensor.op()) + sum(
+        index_bytes_beyond_count(l.op()) for l in knet.layers().values() if l != "relu")
+    res = dict(memory_allocated=held, device_bytes=counted, gap=held - counted,
+               int64_index_bytes_beyond_count=extra,
+               gap_unexplained=held - counted - extra)
+    log("[%s] %s device memory: %s" % (tag, label, json.dumps(res)))
+    return res
+
+
+def stochastic_keynet(kt):
+    """VGG16(seed=5) keyed with the stochastic recipe at 3x224x224: (source
+    net, keyed sensor, keyed net, conversion seconds)."""
+    net = kt.models.VGG16(seed=5)
+    t = time.perf_counter()
+    sensor, knet = kt.Keynet((3, 224, 224), net, device="cuda", **STOCH_RECIPE)
+    return net, sensor, knet, time.perf_counter() - t
+
+
+def phase_vgg_stochastic(kt, block_ell):
+    """Slice 7, the stochastic VGG-16 at 3x224x224 (f32 tiles): conversion
+    seconds (total and per layer), peak host RSS, nnz, device_bytes() beside
+    torch.cuda.memory_allocated(); every layer's route held against
+    keynet_tpu's (STOCH_ROUTES), each Block-ELL core's shape, KB, unique
+    tiles, period and its apply (grouped-row einsum, slot walk or periodic
+    kernel) at B=1, 8 and 32; keyed == source within 1e-5*max(1, scale) at
+    B=1, 8 and 32 with the counts set to 0 just before and read just after
+    (every entry the cores route to must have launched, and one at least);
+    per-link ms at B=1 and 32 and a trace of the B=1 forward.  A route that
+    differs from the table raises at the end of the phase."""
+    import gc
+    import resource
+    import torch
+    gc.collect()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    alloc0 = torch.cuda.memory_allocated()
+    net, sensor, knet, secs = stochastic_keynet(kt)
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    layer_s = {k: round(v, 2) for k, v in knet.layer_seconds.items()}
+    log("[vgg-stochastic] conversion: %.1f s (host); per layer %s; sensor and the rest "
+        "%.1f s; peak host RSS %.2f GiB (%.2f GiB before); nnz %d"
+        % (secs, json.dumps(layer_s),
+           secs - sum(knet.layer_seconds.values()), rss1, rss0, knet.num_parameters()))
+    device_memory("vgg-stochastic", "VGG16 stochastic", sensor, knet, alloc0)
+    log_routes("vgg-stochastic", sensor, knet)
+    wrong = {}
+    for name, op in [("sensor", sensor.op())] + [(k, l.op()) for k, l in knet.layers().items()
+                                                 if l != "relu"]:
+        if route_kinds(op) != STOCH_ROUTES[name]:
+            wrong[name] = (route_kinds(op), STOCH_ROUTES[name])
+    cores = block_ell_cores(sensor, knet)
+    for name, c, per_image in cores:
+        log("[vgg-stochastic] core %s: %s" % (name, json.dumps(dict(
+            shape=list(c.shape), rows=int(c.tile_ids.shape[0]), KB=int(c.tile_ids.shape[1]),
+            unique_tiles=int(c.tiles.shape[0]), period=c.period,
+            nonzero_slots=int((c.tile_ids > 0).sum()),
+            grouped_row_plan=None if c._rgroups is None else dict(
+                buckets=len(c._rgroup_meta), patterns=sum(G for _, G in c._rgroup_meta),
+                tile_gather_bytes=sum(G for _, G in c._rgroup_meta) * c.tile_ids.shape[1]
+                * c.tileshape[0] * c.tileshape[1] * c.tiles.element_size()),
+            apply={"B=%d" % B: core_apply(block_ell, c, B * per_image) for B in (1, 8, 32)}))))
+
+    block_ell.reset_launches()
+    xcs, forwards = {}, {}
+    for B in (1, 8, 32):
+        xcs[B], forwards[B] = keyed_vs_source(kt, net, sensor, knet, B, 400 + B,
+                                              "VGG16 stochastic", reps=5 if B < 32 else 3,
+                                              tag="vgg-stochastic")
+    torch.cuda.synchronize()
+    launches = dict(block_ell.LAUNCHES)
+    log("[vgg-stochastic] launches: %s" % json.dumps(launches))
+    transient = {}
+    for B in (1, 32):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        knet.forward(xcs[B])
+        torch.cuda.synchronize()
+        transient["B=%d" % B] = torch.cuda.max_memory_allocated() - base
+    log("[vgg-stochastic] device memory a forward takes beyond what the net holds (its "
+        "activations and transients, the grouped-row tile gathers among them): %s"
+        % json.dumps(transient))
+    routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for _, c, m in cores
+                                  for B in forwards)))
+    log("[vgg-stochastic] entries routed by the driven Block-ELL cores: %s" % routed)
+    if not routed:
+        raise AssertionError("no Block-ELL core of the stochastic VGG routes to a kernel")
+    for name in routed:
+        if launches[name] <= 0:
+            raise AssertionError("%s was not launched on the stochastic VGG path" % name)
+    never_routed(launches, "the stochastic VGG path")
+    for B in (1, 32):
+        layer_breakdown("VGG16 stochastic", knet, xcs[B])
+    trace_forward(kt, knet, xcs[1], "vgg_stochastic_forward_B1")
+    if wrong:
+        raise AssertionError("[vgg-stochastic] routes differ from keynet_tpu's: %s"
+                             % json.dumps(wrong))
+    return {"vgg-stochastic": (knet, xcs, cores)}, launches
+
+
+def core_apply(block_ell, core, rows):
+    """How BlockSparseOp.apply runs ``core`` for ``rows`` rows on the card:
+    the kernel entries it launches, or the einsum it takes instead."""
+    import torch
+    from keynet_tpu_torch.ops.operators import block_ell_route
+    entries = entries_of(block_ell, core, rows)
+    if entries:
+        return sorted(entries)
+    if block_ell_route("cuda", *core.tileshape) != "kernel":
+        return "einsum (sub-128 tiles)"
+    if core._rgroups is not None and core._grouped_wins(rows, torch.device("cuda")):
+        return "grouped-row einsum"
+    return "periodic einsum"
+
+
+def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks):
+    """The kernel at the largest Block-ELL core of the stochastic VGG that
+    routes to one (by non-zero slots, a conv's core), at B=1, 8 and 32:
+    kernel, plain and library times and the bound, as phase_kernels' rows."""
+    from keynet_tpu_torch.ops.operators import PermutedBlockSparseOp
+    convs = {k for k, l in knet.layers().items() if l != "relu"
+             and any(isinstance(o, PermutedBlockSparseOp) for o in getattr(l.op(), "ops",
+                                                                          [l.op()]))}
+    name, core = max(((n, c) for n, c, m in cores if n in convs
+                      and any(entries_of(block_ell, c, B) for B in (1, 8, 32))),
+                     key=lambda nc: int((nc[1].tile_ids > 0).sum()))
+    out = {}
+    for B in (1, 8, 32):
+        entries = entries_of(block_ell, core, B)
+        if "periodic_block_ell_matvec" in entries:
+            out[B] = measure_periodic(block_ell, knet, xcs[B], name, peaks,
+                                      label="VGG16 stochastic")
+            continue
+        c, x = core_input(knet, xcs[B], name)
+        fn = block_ell.route(c.tile_ids.shape[1])
+        out[B] = measure_operand(block_ell, bk, fn, {}, c.tiles, c.tile_ids, c.col_blk, x,
+                                 "VGG16 stochastic %s core, B=%d" % (name, B), peaks)
+    log("[kernels] VGG16 stochastic: the largest kernel-routed core is %s's %s, KB %d"
+        % (name, tuple(core.tile_ids.shape), core.tile_ids.shape[1]))
+    return name, out
+
+
 def phase_outputs(kt, path, against=None):
     """The keyed outputs and forward times of the orth VGG-16 (B=1, 8, 32)
     and the StochasticKeynet AllConvNet (B=64, 1024) on chip_smoke's seeded
@@ -1417,6 +1661,7 @@ def main(argv=None):
     ap.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--tree", metavar="DIR", default=ROOT)
     ap.add_argument("--against", metavar="FILE")
+    ap.add_argument("--only", choices=["vgg-stochastic"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1428,6 +1673,13 @@ def main(argv=None):
     rows = None
     if args.outputs:
         phase_outputs(kt, args.outputs, args.against)
+    elif args.only == "vgg-stochastic":
+        from keynet_tpu_torch import bench_kernels as bk
+        peaks = bk.card_peaks(name)[1]
+        paths, launches = timed("slice 7 (VGG stochastic)", phase_vgg_stochastic, kt,
+                                block_ell)
+        log("[main] launches by path: %s" % json.dumps({"slice 7 (VGG stochastic)": launches}))
+        timed("kernels", stochastic_kernel_rows, block_ell, bk, *paths["vgg-stochastic"], peaks)
     elif args.ab:
         versions = [(tag, build_version(block_ell, os.path.abspath(d)))
                     for tag, d in (a.split("=", 1) for a in args.ab)]
@@ -1449,9 +1701,11 @@ def main(argv=None):
                    "slice 6 (tiled)": timed("slice 6 (tiled)", phase_tiled, kt, block_ell),
                    "slice 6 (VGG identity)": timed("slice 6 (VGG identity)",
                                                    phase_vgg_identity, kt, block_ell)}
-        total = {n: sum(p[n] for p in by_path.values()) for n in block_ell.ENTRIES}
+        stoch_paths, by_path["slice 7 (VGG stochastic)"] = timed(
+            "slice 7 (VGG stochastic)", phase_vgg_stochastic, kt, block_ell)
+        paths.update(stoch_paths)
         log("[main] launches by path: %s" % json.dumps(by_path))
-        rows = timed("kernels", phase_kernels, block_ell, bk, paths, total, peaks)
+        rows = timed("kernels", phase_kernels, block_ell, bk, paths, by_path, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))
     print(smi)
     if rows is not None:

@@ -619,12 +619,13 @@ class EllOp(LinearOp):
 
     y[:, i] = sum_k vals[i, k] * x[:, cols[i, k]]: one gather and a weighted
     reduce, row-chunked so the gathered (B, rows, K) block stays under
-    GLOBAL['ELL_GATHER_BYTES'].
+    GLOBAL['ELL_GATHER_BYTES'].  ``cols`` are int32, as keynet_tpu holds them
+    (8 bytes an entry with ``vals``); index_select reads them as they are.
     """
     _tensors = ("cols", "vals")
 
     def __init__(self, cols, vals, shape, nnz):
-        self.cols = _t(cols, torch.int64)   # (n_out, K)
+        self.cols = _t(cols, torch.int32)   # (n_out, K)
         self.vals = _t(vals, torch.float32)  # (n_out, K)
         self.shape = tuple(shape)
         self._nnz = int(nnz)
@@ -652,7 +653,7 @@ class EllOp(LinearOp):
         parts = []
         for r0 in range(0, n_out, rc):
             c = self.cols[r0:r0 + rc]
-            xg = x[:, c.reshape(-1)].reshape(B, c.shape[0], K)
+            xg = x.index_select(1, c.reshape(-1)).reshape(B, c.shape[0], K)
             parts.append(torch.einsum("bnk,nk->bn", xg, self.vals[r0:r0 + rc]))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
@@ -663,7 +664,7 @@ class EllOp(LinearOp):
         return int(self.cols.numel()) * 8
 
     def arrays(self):
-        return {"cols": self.cols.to(torch.int32), "vals": self.vals}
+        return {"cols": self.cols, "vals": self.vals}
 
 
 class PermutedBlockSparseOp(LinearOp):

@@ -124,6 +124,7 @@ class KeyedModel:
         self._embeddingkey = _outkeypair(last)[1] if do_output_encryption else None
 
         keyed = OrderedDict()
+        self.layer_seconds = OrderedDict()   # host seconds of each keyed layer
         self._key_layers(net, shapes, layerkey, keyed, f_module_to_keyedmodule)
         self._layers = keyed
         self._outshape = shapes["output"]["outshape"]
@@ -137,6 +138,7 @@ class KeyedModel:
             if isinstance(l, specs.Dropout):
                 continue
             _t0 = _time.perf_counter()
+            before = set(keyed)
             vprint('[keynet_tpu_torch.KeyedModel]: keying "%s"' % k)
 
             if isinstance(l, specs.BatchNorm2d):
@@ -184,9 +186,12 @@ class KeyedModel:
                     l, shapes[k]["inshape"], shapes[k]["outshape"],
                     layerkey[k]["A"], layerkey[k]["Ainv"], params=net.params.get(k))
                 vprint("[keynet_tpu_torch.KeyedModel]:     %r" % keyed[k])
+            elapsed = _time.perf_counter() - _t0
+            for name in set(keyed) - before:
+                if keyed[name] != "relu":
+                    self.layer_seconds[name] = elapsed
             if k in keyed or (k.endswith("_bn")):
-                vprint("[keynet_tpu_torch.KeyedModel]:     %.1fs"
-                       % (_time.perf_counter() - _t0))
+                vprint("[keynet_tpu_torch.KeyedModel]:     %.1fs" % elapsed)
 
     @classmethod
     def from_layers(cls, layers, outshape, imagekey=None, embeddingkey=None,
@@ -196,6 +201,7 @@ class KeyedModel:
         self = cls.__new__(cls)
         self._device = resolve_device(device)
         self._layers = OrderedDict(layers)
+        self.layer_seconds = OrderedDict()
         self._outshape = tuple(outshape)
         self._imagekey = imagekey
         self._embeddingkey = embeddingkey

@@ -322,3 +322,73 @@ def test_save_load_on_card_bitwise(tmp_path):
     kt.save_keynet(p, knet, sensor=sensor, include_keys=True)
     s2, k2 = kt.load_keynet(p, device="cuda")
     assert torch.equal(knet.forward(xc), k2.forward(xc))
+
+
+# The stochastic recipe's net of tests/test_torch_vgg_stochastic.py (VGG-16's
+# first two blocks at 3x56x56, 16 and 32 channels, hierarchical levels (0, 1))
+# and the gates that give it the 224 routes.
+STOCH_GATES = {"STREAM_NNZ": 100_000, "POOL_FACTOR_MIN_N": 1,
+               "ROWGROUP_MIN_SLOT_BYTES": 1 << 16, "KRON_NPIX_MAX": 512,
+               "KRON_NPIX_WIDE": 1024, "MASK_DENSE_MAX_BYTES": 1 << 16}
+
+
+def _masked_core():
+    """conv1_1's masked streamed core (after the dense-inverse split and
+    the F2 EllOp) of that net, keyed on the card; and the same arrays as a
+    core without its period, so that it carries a grouped-row plan."""
+    import keynet_tpu_torch as kt
+    from keynet_tpu_torch.ops.operators import BlockSparseOp
+    m = kt.models
+    net = m.Model([m.Conv2d("conv1_1", 3, 16, 3), m.ReLU("relu1_1"),
+                   m.Conv2d("conv1_2", 16, 16, 3), m.ReLU("relu1_2"),
+                   m.AvgPool2d("pool1_2", 3, 2)], inshape=(3, 56, 56), seed=5)
+    with _Globals(**STOCH_GATES):
+        _, knet = kt.Keynet((3, 56, 56), net, global_geometric="hierarchical_permutation",
+                            hierarchical_blockshape=(2, 2),
+                            hierarchical_permute_at_level=(0, 1),
+                            local_geometric="doubly_stochastic", alpha=2.0, blocksize=14,
+                            local_photometric="uniform_random_affine", beta=1.0, gamma=1.0,
+                            memoryorder="channel", seed=0, device="cuda")
+        knet._build()
+        chain = knet.layers()["conv1_1"].op()
+        assert [type(o).__name__ for o in chain.ops] \
+            == ["RepeatedBlockDiagOp", "EllOp", "PermutedBlockSparseOp"]
+        core = chain.ops[2].inner
+        flat = BlockSparseOp(core.tiles, core.tile_ids, core.col_blk, core.shape,
+                             core.tileshape, core.nnz())
+    assert flat._rgroups is not None and flat.tiles.is_cuda
+    return flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B", [("grouped_vs_slot_walk", 1), ("grouped_vs_slot_walk", 8),
+                                    ("grouped_vs_slot_walk", 32), ("ell_k16", 1),
+                                    ("ell_k16", 32)])
+def test_stochastic_ops_on_card(case, B):
+    """The stochastic recipe's device paths: on a masked streamed core of
+    the net above the grouped-row einsum and the slot-walk kernel give the
+    same output within 1e-5·max(1, scale); an EllOp of K=16 (the row
+    length of keynet_tpu's F2 mask factor at VGG conv2_1,
+    docs/SERVING.md:206-207) gives the same result on the card as on the
+    CPU."""
+    _needs_card()
+    from keynet_tpu_torch.ops.operators import EllOp
+    rng = np.random.default_rng(B)
+    if case == "ell_k16":
+        n_in, n_out = 20_000, 30_000
+        cols = rng.integers(0, n_in, size=(n_out, 16)).astype(np.int32)
+        vals = rng.standard_normal((n_out, 16)).astype(np.float32)
+        x = torch.from_numpy(rng.standard_normal((B, n_in)).astype(np.float32))
+        op = EllOp(cols, vals, (n_out, n_in), n_out * 16)
+        ref = op.apply(x)
+        _close(op.to("cuda").apply(x.cuda()).cpu(), ref, 1e-5)
+        return
+    core = _masked_core()
+    TN = core.tileshape[1]
+    n_cb = -(-core.shape[1] // TN)
+    n_rb = core.tile_ids.shape[0]
+    x = torch.from_numpy(rng.standard_normal((B, n_cb * TN)).astype(np.float32)).cuda()
+    block_ell.reset_launches()
+    walk = core._apply_rows(x, 0, n_rb)
+    assert block_ell.LAUNCHES[block_ell.route(core.tile_ids.shape[1]).__name__] == 1
+    _close(core._apply_grouped(x.reshape(B, n_cb, TN)), walk, 1e-5)
