@@ -84,6 +84,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
                and 32 within 1e-5*max(1, scale); every entry the cores route
                to must have launched; per-link ms at B=1 and 32 and a trace of
                the B=1 forward;
+               slice 8, [parallel] (the launches of the sharded forwards
+               counted on every rank and summed): four ranks, dp=2 x tp=2,
+               spawned by kt.parallel.launch on the one card over gloo,
+               each loading the kernels built above, run the sections of
+               __graft_entry__.dryrun_multichip: (a) StochasticKeynet
+               AllConvNet at bench's config converted on every rank (the
+               packed arrays' sha1 must agree), shard_keynet_ops at the
+               default 32 MiB (conv1's Block-ELL and conv2-conv5's chains
+               must shard; replication_report with no unjustified row),
+               keyed_forward_dp_tp at B=64 and 256 held against the single
+               forward within 1e-4*max(1, scale) and, decrypted, against the
+               source within 1e-5*max(1, scale); (b) one
+               make_sharded_train_step step (AllConvNet, B=128 synthetic
+               CIFAR-10, the CIFAR recipe, fc1 tp-split) against one
+               make_train_step step: loss and params within
+               1e-5*max(1, |p|); (c)-(g) the 8 x 128-block block-diagonal
+               Block-ELL, the Kron/TapSum/Kron chain, EllOp and
+               RepeatedBlockDiagOp, the stochastic LeNet_AvgPool with
+               STREAM_NNZ 60,000 and the streamed masked-chain conv
+               8x16x16 (max_replication 1.01), each against its single
+               apply within 1e-4*max(1, scale); every entry the shards
+               route to must have launched (xresd among them);
+               [challenge] a PermutationKeynet LeNet_AvgPool written in
+               the 2020 release's pickle format under build/challenge/,
+               load_challenge(device="cuda"), the public forward at B=64
+               against the host scipy oracle within 1e-5*max(1, scale);
   7. kernels   one row per Pallas function: each slot-walk entry at the
                shape its main path gave it (the depth-1 entry, which no core
                routes to on this card, at the shape the JAX package routes
@@ -117,9 +143,9 @@ converts the orth VGG-16 and the AllConvNet with the keynet_tpu_torch of
 DIR (default this checkout), saves their keyed outputs and forward times,
 and holds them against another tree's file (phase_outputs).
 
-    python3 chip_smoke.py --only vgg-stochastic
+    python3 chip_smoke.py --only vgg-stochastic|parallel|challenge
 
-builds, then runs the [vgg-stochastic] phase and its kernel row alone.  Each phase's seconds are logged as "[time] ...".
+builds, then runs that phase alone ([vgg-stochastic] with its kernel row).  Each phase's seconds are logged as "[time] ...".
 """
 
 import json
@@ -1479,6 +1505,360 @@ def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks):
     return name, out
 
 
+# --------------------------------------------------------------- slice 8
+PARALLEL_SHAPE = (2, 2)   # (dp, tp): four ranks on the one card
+PARALLEL_DEADLINE = 600   # seconds for the four ranks to import, convert and check
+SHARED = "4 ranks sharing one card over gloo, not a multi-card time"
+
+
+class fed_operands:
+    """While active, records what the forward feeds the Block-ELL kernels
+    of the TpShardedBlockEllOps ``tps`` (through their local BlockSparseOp):
+    (the op, row-blocks [a, b) of the slot walk or None for the periodic
+    mid-section, the padded x), copied as the op hands them on."""
+
+    def __init__(self, tps):
+        self.tps, self.calls = list(tps), []
+
+    def __enter__(self):
+        for tp in self.tps:
+            core = tp.local
+
+            def rows(x, a, b, tp=tp, apply=core._apply_rows):
+                self.calls.append((tp, (a, b), x.clone()))
+                return apply(x, a, b)
+
+            def mid(x, tp=tp, apply=core._apply_periodic_mid):
+                self.calls.append((tp, None, x.clone()))
+                return apply(x)
+            core._apply_rows, core._apply_periodic_mid = rows, mid
+        return self
+
+    def __exit__(self, *exc):
+        for tp in self.tps:
+            del tp.local._apply_rows, tp.local._apply_periodic_mid
+
+
+def hold_fed(block_ell, calls, what):
+    """Each recorded kernel operand through the wrapper the op routes it to
+    and through the kernel's plain version, held within the parity phase's
+    tolerance; returns (entry, line) a call.  Operands the route sends to an
+    einsum (sub-128 tiles, the CPU) have no kernel to hold."""
+    import torch
+    from keynet_tpu_torch.ops.operators import block_ell_route
+    lines = []
+    for tp, rows, x in calls:
+        core = tp.local
+        TM, TN = core.tileshape
+        if block_ell_route(x.device.type, TM, TN) != "kernel":
+            continue
+        if rows is None:
+            s, P, R = core.period
+            args = (x, core.tiles, core.tile_ids, core.col_blk, s, P, R)
+            fn, ref = block_ell.periodic_block_ell_matvec, block_ell.periodic_block_ell_plain
+        else:
+            a, b = rows
+            args = (x, core.tiles, core.tile_ids[a:b], core.col_blk[a:b], (b - a) * TM)
+            fn, ref = block_ell.route(core.tile_ids.shape[1]), block_ell.block_ell_plain
+        y, want = fn(*args), ref(*args)
+        sync(x.device)
+        err, scale = float((y - want).abs().max()), float(want.abs().max())
+        tol = TOL_F32 if core.tiles.dtype == torch.float32 else TOL_BF16
+        check(err, scale, tol, "[parallel] %s: %s vs its plain version" % (what, fn.__name__))
+        zero = "a zero tile put first, ids shifted" if tp.zero_tile_added \
+            else "local id 0 the zero tile"
+        span = "periodic" if rows is None else "%d-%d" % rows
+        lines.append((fn.__name__, "%s: %s at the forward's operand (B=%d, row-blocks %s of "
+                      "%d, KB %d, %d tiles, %s), max|diff| %.3g vs the plain version "
+                      "(scale %.3g)" % (what, fn.__name__, x.shape[0], span,
+                                        core.tile_ids.shape[0], core.tile_ids.shape[1],
+                                        core.tiles.shape[0], zero, err, scale)))
+    return lines
+
+
+def parallel_rank(rank, world, device="cuda"):
+    """One rank of the [parallel] phase (spawned by kt.parallel.launch,
+    sharing cuda:0 with the others over gloo): the sections of
+    __graft_entry__.dryrun_multichip (:100-302) on the port.  Every operand
+    a sharded forward feeds a Block-ELL kernel is also run through that
+    kernel and its plain version (hold_fed).  Returns (log lines, the
+    kernel launches of the sharded forwards, the entries their Block-ELL
+    shards route to on the card, the operands held, bytes, section seconds).
+    ``device="cpu"`` rehearses it on the CPU (the kernels' plain versions)."""
+    import hashlib
+    import numpy as np
+    import scipy.sparse
+    import torch
+    dev = torch.device(device)
+    import keynet_tpu_torch as kt
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_parallel_ranks as ranks   # the dryrun's toy nets, as the tests build them
+    from keynet_tpu_torch.ops import block_ell
+    from keynet_tpu_torch.ops import operators as O
+    from keynet_tpu_torch.parallel import sharding as S
+    kt.globals.precision("highest")
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        block_ell.build()     # the parent built them: this loads build/kernels/
+    mesh = S.Mesh(PARALLEL_SHAPE, ("dp", "tp"), device=dev)
+    dp = mesh.size("dp")
+    lines, secs, routed, fed = [], {}, set(), []
+    launches = {n: 0 for n in block_ell.ENTRIES}
+    say = lambda s: lines.append(s)
+
+    def sharded(fn, *args, tps=(), what=None):
+        """fn(*args) with its kernel launches counted for the path; the
+        operands it feeds the Block-ELL kernels of the sharded ops ``tps``
+        then go through each kernel and its plain version (hold_fed; those
+        launches are not counted)."""
+        sync(dev)
+        before = dict(block_ell.LAUNCHES)
+        with fed_operands(tps) as rec:
+            out = fn(*args)
+        sync(dev)
+        for n in launches:
+            launches[n] += block_ell.LAUNCHES[n] - before[n]
+        unfed = [tp for tp in tps if O.block_ell_route(dev.type, *tp.local.tileshape)
+                 == "kernel" and not any(c[0] is tp for c in rec.calls)]
+        if unfed:
+            raise AssertionError("[parallel] %s: %d kernel-routed shards of the plan were "
+                                 "not applied by the forward" % (what, len(unfed)))
+        fed.extend(hold_fed(block_ell, rec.calls, what))
+        return out
+
+    def held(y, ref, what, tol=1e-4):
+        err, scale = float((y - ref).abs().max()), float(ref.abs().max())
+        check(err, scale, tol, "[parallel] rank %d %s" % (rank, what))
+        return err
+
+    def route(plan, B):
+        for tp in S.tp_block_ops(plan):
+            routed.update(entries_of(block_ell, tp.local, B // dp))
+
+    # (a) the full-width cell: StochasticKeynet AllConvNet at bench's config
+    t = time.perf_counter()
+    net = kt.models.AllConvNet(seed=1)
+    sensor, knet = kt.StochasticKeynet((3, 32, 32), net, alpha=2, blocksize=8, seed=0,
+                                       device=dev)
+    knet._build()
+    h = hashlib.sha1()
+    for op in [sensor.op()] + list(knet._ops):
+        for k, v in sorted(op.arrays().items()):
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    digests = [None] * world
+    torch.distributed.all_gather_object(digests, h.hexdigest())
+    if len(set(digests)) != 1:
+        raise AssertionError("[parallel] the ranks' conversions differ: %s" % digests)
+    say("AllConvNet conversion %.1f s on each rank; packed arrays' sha1 %s on all %d "
+        "ranks" % (time.perf_counter() - t, digests[0][:16], world))
+    f = S.keyed_forward_dp_tp(knet, mesh)
+    plan = f.ops
+    names = [n for n, l in knet.layers().items() if l != "relu"]
+    routes = dict(zip(names, map(ranks.decision, plan)))
+    for name in names:
+        say("%s: %s" % (name, routes[name]))
+    if "PermutedBlockSparseOp(TpShardedBlockEllOp)" not in routes["conv1"]:
+        raise AssertionError("[parallel] conv1's Block-ELL did not shard: %s" % routes["conv1"])
+    for name in ("conv2", "conv3", "conv4", "conv5"):
+        if "TpShardedTapSumOp" not in routes[name]:
+            raise AssertionError("[parallel] %s's chain did not shard: %s" % (name, routes[name]))
+    held_bytes = S.plan_local_bytes(plan)
+    full_bytes = sum(op.device_bytes() for op in knet._ops)
+    audit = S.replication_report(plan)
+    say("replication_report: %s" % json.dumps(audit))
+    if [r for r in audit if r[3] is None]:
+        raise AssertionError("[parallel] replicated without a reason: %r" % audit)
+    for B in (64, 256):
+        x = np.random.default_rng(B).standard_normal((B, 3, 32, 32)).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        xc = sensor.fromtensor(xd).encrypt().tensor()
+        ref = knet.run(xc)
+        y = sharded(f, xc, tps=S.tp_block_ops(plan), what="AllConvNet conv1 shard")
+        err = held(y, ref, "AllConvNet dp x tp B=%d vs single" % B)
+        out = kt.homogeneous.linear_to_affine(knet.decrypt(y), None)
+        src = net.forward(xd)
+        err_src = held(out, src, "AllConvNet dp x tp B=%d keyed vs source" % B, TOL_F32)
+        route(plan, B)
+        ms = statistics.median(sharded(_wall_ms, dev, f, xc) for _ in range(3))
+        ms_single = statistics.median(_wall_ms(dev, knet.run, xc) for _ in range(3))
+        say("AllConvNet B=%d: dp x tp vs single max|diff| %.3g, keyed vs source %.3g "
+            "(scale %.3g); forward %.3f ms dp x tp, %.3f ms single (%s)"
+            % (B, err, err_src, float(src.abs().max()), ms, ms_single, SHARED))
+    secs["a AllConvNet"] = time.perf_counter() - t
+    del f, plan, knet, sensor
+
+    # (b) one sharded train step against one single-process step: the loss,
+    # every leaf's gradient and every updated param; the gradient check must
+    # fail each fault planted in the step (ranks.planted_fault)
+    t = time.perf_counter()
+    net = kt.models.AllConvNet(seed=1)
+    xb, yb = kt.datasets.load_cifar10(root=None, synthetic_n=128)
+    opt = dict(lr=0.01, momentum=0.9, weight_decay=1e-3)
+    loss, p_shard, got, grads = ranks.sharded_step(kt, net, mesh, xb, yb, **opt)
+    loss1, single, grads1 = ranks.single_step(kt, net, dev, xb, yb, **opt)
+    check(abs(loss - loss1), abs(loss1), TOL_F32, "[parallel] sharded step loss")
+    for what, tree, want in (("gradient", grads, grads1), ("param", got, single)):
+        leaf, err, bound = ranks.worst_leaf(tree, want, TOL_F32)
+        if not err <= bound:
+            raise AssertionError("[parallel] sharded step %s %s: max|diff| %.3g > %.3g"
+                                 % (what, leaf, err, bound))
+    g_leaf, g_err, g_bound = ranks.worst_leaf(grads, grads1, TOL_F32)
+    say("train step AllConvNet B=128 (fc1 %s): loss %.7f sharded, %.7f single; gradients "
+        "worst leaf %s max|diff| %.3g (bound %.3g); params max|diff| %.3g"
+        % (p_shard["fc1"]["weight"], loss, loss1, g_leaf, g_err, g_bound,
+           ranks.worst_leaf(got, single, TOL_F32)[1]))
+    for fault in ranks.FAULTS:
+        _, _, _, bad = ranks.sharded_step(kt, net, mesh, xb, yb, fault=fault, **opt)
+        leaf, err, bound = ranks.worst_leaf(bad, grads1, TOL_F32)
+        if not err > bound:
+            raise AssertionError("[parallel] the gradient check passes the planted fault %s"
+                                 % fault)
+        say("planted fault %s: gradient check fails as it must, worst leaf %s max|diff| %.3g "
+            "> bound %.3g" % (fault, leaf, err, bound))
+    secs["b train step"] = time.perf_counter() - t
+
+    # (c)-(g) the dryrun's toy sections, each against the single apply
+    t = time.perf_counter()
+    rng = np.random.default_rng(0)
+    A = scipy.sparse.block_diag([rng.normal(size=(128, 128)).astype(np.float32)
+                                 for _ in range(8)], format="csr")
+    bop = O.BlockSparseOp.from_scipy(A, tileshape=(128, 128)).to(mesh.device)
+    tpop = S.tp_shard_block_op(bop, mesh, "tp")
+    xb = torch.from_numpy(rng.normal(size=(4, A.shape[1])).astype(np.float32)).to(dev)
+    held(sharded(tpop.apply, xb, tps=[tpop], what="block-diagonal shard"), bop.apply(xb),
+         "block-diagonal Block-ELL")
+    routed.update(entries_of(block_ell, tpop.local, 4))
+    say("(c) 8 x 128 block-diagonal Block-ELL: %d B of tiles a rank of %d B"
+        % (tpop.per_chip_tile_bytes(), bop.device_bytes()))
+    C, p, T = 8, 16, 9
+    mk = lambda *s: (rng.normal(size=s) / np.sqrt(s[-1])).astype(np.float32)
+    chain = O.ChainedOp([O.KroneckerOp(mk(C, C), mk(p, p), mk(C * p)),
+                         O.TapSumOp(mk(T, C, C), mk(T, p, p), mk(C * p)),
+                         O.KroneckerOp(mk(C, C), mk(p, p), mk(C * p))]).to(mesh.device)
+    tpc = S.tp_shard_chain_op(chain, mesh, "tp")
+    xk = torch.from_numpy(rng.normal(size=(4, C * p + 1)).astype(np.float32)).to(dev)
+    held(sharded(tpc.apply, xk), chain.apply(xk), "Kron/TapSum chain")
+    say("(d) Kron/TapSum/Kron chain: %s" % ranks.decision(tpc))
+    eop = O.EllOp.from_scipy(scipy.sparse.random(600, 512, density=0.02, random_state=1,
+                                                 dtype=np.float32, format="csr")).to(mesh.device)
+    tpe = S.TpShardedEllOp.from_ell_op(eop, mesh, "tp")
+    xe = torch.from_numpy(rng.normal(size=(4, 512)).astype(np.float32)).to(dev)
+    held(sharded(tpe.apply, xe), eop.apply(xe), "EllOp")
+    rop = O.RepeatedBlockDiagOp(rng.normal(size=(4, 4)).astype(np.float32),
+                                rng.normal(size=64).astype(np.float32), 64).to(mesh.device)
+    tpr = S.TpShardedRepeatedBlockDiagOp.from_op(rop, mesh, "tp")
+    xr = torch.from_numpy(rng.normal(size=(4, 65)).astype(np.float32)).to(dev)
+    held(sharded(tpr.apply, xr), rop.apply(xr), "RepeatedBlockDiagOp")
+    say("(e) EllOp %d B a rank of %d B; RepeatedBlockDiagOp over %d ranks"
+        % (tpe.per_chip_bytes(), eop.device_bytes(), mesh.size("tp")))
+    ls, lk = ranks.stochastic_lenet(kt, dev)
+    fl = S.keyed_forward_dp_tp(lk, mesh, min_tp_bytes=1 << 14)
+    lplan = fl.ops
+    audit = S.replication_report(lplan, min_bytes=1 << 14)
+    if [r for r in audit if r[3] is None]:
+        raise AssertionError("[parallel] LeNet replicated without a reason: %r" % audit)
+    xl = ls.fromtensor(torch.from_numpy(rng.normal(size=(8, 1, 28, 28))
+                                        .astype(np.float32)).to(dev)).encrypt().tensor()
+    held(sharded(fl, xl, tps=S.tp_block_ops(lplan), what="stochastic LeNet shard"),
+         lk.run(xl), "stochastic LeNet_AvgPool dp x tp")
+    route(lplan, 8)
+    say("(f) stochastic LeNet_AvgPool (STREAM_NNZ 60,000): %s; %d justified "
+        "replications" % (", ".join(map(ranks.decision, lplan)), len(audit)))
+    sop = ranks.streamed_layer(kt, rng.normal(size=(8, 8, 3, 3)).astype(np.float32),
+                               rng.normal(size=8).astype(np.float32)).to(dev)
+    tps = S.tp_shard_chain_op(sop, mesh, "tp", max_replication=1.01)
+    if tps is None or not S.tp_block_ops([tps]):
+        raise AssertionError("[parallel] the streamed chain's Block-ELL did not shard")
+    xs = torch.from_numpy(rng.normal(size=(4, sop.shape[1])).astype(np.float32)).to(dev)
+    held(sharded(tps.apply, xs, tps=S.tp_block_ops([tps]), what="streamed core shard"),
+         sop.apply(xs), "streamed masked chain")
+    routed.update(*(entries_of(block_ell, t.local, 4) for t in S.tp_block_ops([tps])))
+    say("(g) streamed masked-chain conv 8x16x16: %s" % ranks.decision(tps))
+    secs["c-g toy sections"] = time.perf_counter() - t
+    return dict(lines=lines, launches=launches, routed=sorted(routed), fed=fed,
+                held_bytes=held_bytes, full_bytes=full_bytes, secs=secs)
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wall_ms(dev, fn, *args):
+    """fn(*args) on the host clock, synchronised (ms)."""
+    sync(dev)
+    t = time.perf_counter()
+    fn(*args)
+    sync(dev)
+    return 1e3 * (time.perf_counter() - t)
+
+
+def phase_parallel(kt, block_ell, device="cuda"):
+    """Slice 8: four ranks, dp=2 x tp=2, on the one card over gloo
+    (parallel_rank).  Logs rank 0's lines, every rank's bytes and the
+    sections' seconds; returns the launches summed over the ranks.  Fails
+    if a rank fails or misses the deadline, or if an entry the shards route
+    to was not launched."""
+    world = PARALLEL_SHAPE[0] * PARALLEL_SHAPE[1]
+    res = kt.parallel.launch(parallel_rank, world, args=(device,), backend="gloo",
+                             deadline=PARALLEL_DEADLINE)
+    for line in res[0]["lines"]:
+        log("[parallel] %s" % line)
+    for r, out in enumerate(res):
+        log("[parallel] rank %d holds %d B of keyed ops (shards and replicated ops) beside "
+            "device_bytes() %d B of the whole net" % (r, out["held_bytes"], out["full_bytes"]))
+    log("[parallel] section seconds on rank 0 (%s): %s" % (SHARED, json.dumps(res[0]["secs"])))
+    launches = {n: sum(out["launches"][n] for out in res) for n in block_ell.ENTRIES}
+    routed = sorted(set().union(*(out["routed"] for out in res)))
+    log("[parallel] launches (4 ranks): %s; routed: %s" % (json.dumps(launches), routed))
+    for r, out in enumerate(res):
+        for _, line in out["fed"]:
+            log("[parallel] rank %d %s" % (r, line))
+    unheld = set(routed) - {e for out in res for e, _ in out["fed"]}
+    if unheld:
+        raise AssertionError("[parallel] no operand of the sharded forwards was held "
+                             "against the plain version for %s" % sorted(unheld))
+    if "block_ell_matmul_xresd" not in routed:
+        raise AssertionError("[parallel] no shard routes to block_ell_matmul_xresd")
+    for name in routed:
+        if launches[name] <= 0:
+            raise AssertionError("%s was not launched on the slice-8 path" % name)
+    never_routed(launches, "the slice-8 path")
+    return launches
+
+
+def phase_challenge(kt):
+    """Slice 8, [challenge]: a PermutationKeynet LeNet_AvgPool(seed=0)
+    written in the 2020 release's pickle format (tests/legacy_challenge.py)
+    under build/, loaded with load_challenge on the card, its public
+    forward held against the host scipy oracle within 1e-5·max(1, scale)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import legacy_challenge
+    net = kt.models.LeNet_AvgPool(seed=0)
+    sensor, knet = kt.PermutationKeynet((1, 28, 28), net, seed=0, device="cuda")
+    layers = legacy_challenge.layers_of(knet)
+    path = os.path.join(ROOT, "build", "challenge", "keynet_challenge_lenet.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    legacy_challenge.write(path, (1, 28, 28), layers)
+    t = time.perf_counter()
+    _, served = kt.challenge.load_challenge(path, device="cuda")
+    load_s = time.perf_counter() - t
+    x = np.random.default_rng(0).standard_normal((64, 1, 28, 28)).astype(np.float32)
+    xc = sensor.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor()
+    y = served.forward(xc)
+    want = torch.from_numpy(legacy_challenge.oracle(layers, xc.cpu().numpy())).cuda()
+    err = float((y - want).abs().max())
+    check(err, float(want.abs().max()), TOL_F32, "[challenge] public forward vs scipy oracle")
+    log("[challenge] %s (%d B): loaded in %.2f s on %s; nnz %s; B=64 public forward vs the "
+        "host scipy oracle max|diff| %.3g" % (
+            os.path.relpath(path, ROOT), os.path.getsize(path), load_s, y.device,
+            json.dumps({n: l.nnz() for n, l in served.layers().items() if l != "relu"}), err))
+
+
 def phase_outputs(kt, path, against=None):
     """The keyed outputs and forward times of the orth VGG-16 (B=1, 8, 32)
     and the StochasticKeynet AllConvNet (B=64, 1024) on chip_smoke's seeded
@@ -1661,7 +2041,7 @@ def main(argv=None):
     ap.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--tree", metavar="DIR", default=ROOT)
     ap.add_argument("--against", metavar="FILE")
-    ap.add_argument("--only", choices=["vgg-stochastic"])
+    ap.add_argument("--only", choices=["vgg-stochastic", "parallel", "challenge"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1680,6 +2060,11 @@ def main(argv=None):
                                 block_ell)
         log("[main] launches by path: %s" % json.dumps({"slice 7 (VGG stochastic)": launches}))
         timed("kernels", stochastic_kernel_rows, block_ell, bk, *paths["vgg-stochastic"], peaks)
+    elif args.only == "parallel":
+        log("[main] launches by path: %s" % json.dumps(
+            {"slice 8 (parallel)": timed("slice 8 (parallel)", phase_parallel, kt, block_ell)}))
+    elif args.only == "challenge":
+        timed("slice 8 (challenge)", phase_challenge, kt)
     elif args.ab:
         versions = [(tag, build_version(block_ell, os.path.abspath(d)))
                     for tag, d in (a.split("=", 1) for a in args.ab)]
@@ -1704,6 +2089,9 @@ def main(argv=None):
         stoch_paths, by_path["slice 7 (VGG stochastic)"] = timed(
             "slice 7 (VGG stochastic)", phase_vgg_stochastic, kt, block_ell)
         paths.update(stoch_paths)
+        by_path["slice 8 (parallel)"] = timed("slice 8 (parallel)", phase_parallel, kt,
+                                              block_ell)
+        timed("slice 8 (challenge)", phase_challenge, kt)
         log("[main] launches by path: %s" % json.dumps(by_path))
         rows = timed("kernels", phase_kernels, block_ell, bk, paths, by_path, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))

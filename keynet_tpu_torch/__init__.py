@@ -21,6 +21,9 @@ The paper's workflow runs end to end: train a source net
 (``train.train`` on ``datasets``), key it, check it on ciphertext
 (``train.validate`` with the secret sensor and keyed net), publish it
 (``serialize.save_keynet``) and serve it elsewhere (``load_keynet``).
+``parallel`` serves it over a (dp, tp) grid of torch.distributed ranks and
+``train.make_sharded_train_step`` trains over one; ``challenge`` loads the
+2020 challenge artifact.
 
 Entry points take ``device=`` (default "cuda") and raise without a card
 unless device="cpu" is given.
@@ -38,6 +41,7 @@ from . import keys
 from . import fiberbundle
 from . import visualize
 from . import ops
+from . import parallel
 from . import layer
 from . import models
 from . import system
@@ -45,6 +49,7 @@ from . import train
 from . import datasets
 from . import serialize
 from . import profiling
+from . import challenge
 
 from .keys import keygen
 from .layer import KeyedLayer

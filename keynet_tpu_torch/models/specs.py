@@ -173,11 +173,14 @@ class Model:
         return self
 
     # ----------------------------------------------------------- inference
-    def forward(self, x, params=None, device=None):
+    def forward(self, x, params=None, device=None, linear=None):
         """Plain (un-keyed) source-model forward; x: (N,C,H,W) tensor or
         array.  Runs on ``device``, else on x's device (the CPU for numpy).
         Numpy params move to that device; tensor params (the trainer's,
-        train.py) pass through as they are, so autograd reaches them."""
+        train.py) pass through as they are, so autograd reaches them.
+        ``linear(layer, x, weight, bias)``, where given, applies the Linear
+        layers in place of x @ weightᵀ + bias (the tp-split layers of
+        train.make_sharded_train_step)."""
         params = self.params if params is None else params
         precision()
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
@@ -202,7 +205,10 @@ class Model:
                 if x.ndim == 4:
                     x = x.reshape(x.shape[0], -1)
                 p = params[l.name]
-                x = torch.matmul(x, t(p["weight"]).T) + t(p["bias"])
+                if linear is not None:
+                    x = linear(l, x, t(p["weight"]), t(p["bias"]))
+                else:
+                    x = torch.matmul(x, t(p["weight"]).T) + t(p["bias"])
             elif isinstance(l, BatchNorm2d):
                 p = {k: t(v) for k, v in params[l.name].items()}
                 scale = p["weight"] / torch.sqrt(p["running_var"] + l.eps)

@@ -425,6 +425,45 @@ class BlockSparseOp(LinearOp):
         return periodic_block_ell_matvec(x, self.tiles, self.tile_ids,
                                          self.col_blk, s, P, R)
 
+    def row_shard_plan(self, tp):
+        """Host-side tile-row partition for tensor-parallel serving
+        (keynet_tpu/ops/operators.py:579-616): split the row-blocks into
+        ``tp`` contiguous shards, each with a COMPACTED tile store holding
+        only the unique tiles its rows reference, and local ids into it:
+
+          tiles:    (tp, u_max, TM, TN)   per-shard unique tiles, zero-padded
+          tile_ids: (tp, rb_per, KB)      LOCAL ids into that shard's tiles
+          col_blk:  (tp, rb_per, KB)
+          rb_per:   row-blocks per shard (row padding uses the zero tile)
+
+        tile_ids and col_blk are numpy arrays equal to keynet_tpu's; tiles
+        is a tensor on the op's device (numpy has no bfloat16) whose values
+        equal keynet_tpu's.  Local id 0 is the shard's smallest global id,
+        a real tile where the shard has no id-0 slot
+        (parallel.sharding.TpShardedBlockEllOp puts the zero tile first)."""
+        ids = self.tile_ids.cpu().numpy()
+        cols = self.col_blk.cpu().numpy()
+        n_rb, KB = ids.shape
+        rb_per = _cdiv(n_rb, tp)
+        pad = rb_per * tp - n_rb
+        if pad:
+            ids = np.vstack([ids, np.zeros((pad, KB), ids.dtype)])
+            cols = np.vstack([cols, np.zeros((pad, KB), cols.dtype)])
+        ids3 = ids.reshape(tp, rb_per, KB)
+        uniqs = [np.unique(ids3[j]) for j in range(tp)]
+        u_max = max(len(u) for u in uniqs)
+        tiles_st = torch.zeros((tp, u_max) + tuple(self.tiles.shape[1:]),
+                               dtype=self.tiles.dtype, device=self.tiles.device)
+        ids_st = np.zeros_like(ids3)
+        for j, u in enumerate(uniqs):
+            tiles_st[j, :len(u)] = self.tiles[torch.from_numpy(u).long()
+                                              .to(self.tiles.device)]
+            remap = np.zeros(int(u.max()) + 1, dtype=ids.dtype)
+            remap[u] = np.arange(len(u), dtype=ids.dtype)
+            ids_st[j] = remap[ids3[j]]
+        return dict(tiles=tiles_st, tile_ids=ids_st,
+                    col_blk=cols.reshape(tp, rb_per, KB), rb_per=int(rb_per))
+
     def nnz(self):
         return self._nnz
 

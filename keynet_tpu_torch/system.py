@@ -229,18 +229,21 @@ class KeyedModel:
         self._stages = stages
         self._ops = ops
 
-    def run(self, x):
+    def run(self, x, ops=None):
         """The keyed forward on an encrypted homogeneous batch already on the
         device: every layer's op with ReLU between layers
-        (keynet_tpu/system.py:256-270).  Returns the cipher output."""
+        (keynet_tpu/system.py:256-270).  ``ops`` replaces the net's own ops
+        one for one, as keynet_tpu's ``_forward(ops, x)`` takes them (the
+        sharded plans of parallel.sharding).  Returns the cipher output."""
         precision()
         self._build()
+        ops = self._ops if ops is None else ops
         i = 0
         for stage in self._stages:
             if stage == "relu":
                 x = torch.clamp_min(x, 0.0)
             else:
-                x = self._ops[i].apply(x)
+                x = ops[i].apply(x)
                 if stage[1]:
                     x = torch.clamp_min(x, 0.0)
                 i += 1

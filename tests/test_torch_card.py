@@ -392,3 +392,44 @@ def test_stochastic_ops_on_card(case, B):
     walk = core._apply_rows(x, 0, n_rb)
     assert block_ell.LAUNCHES[block_ell.route(core.tile_ids.shape[1]).__name__] == 1
     _close(core._apply_grouped(x.reshape(B, n_cb, TN)), walk, 1e-5)
+
+
+@pytest.mark.cuda
+def test_tp_sharded_block_ell_on_card():
+    """Two ranks on the card over gloo: the 8-block block-diagonal (every
+    row-block full, so no shard holds an id-0 slot) tile-row tp-sharded and
+    applied through the slot-walk kernel equals the single op, on every
+    rank."""
+    _needs_card()
+    import scipy.sparse
+    import torch_parallel_ranks as ranks
+    from keynet_tpu_torch.parallel import launch
+    rng = np.random.default_rng(0)
+    blocks = rng.standard_normal((8, 128, 128)).astype(np.float32)
+    x = rng.standard_normal((4, 1024)).astype(np.float32)
+    want = (scipy.sparse.block_diag(list(blocks), format="csr") @ x.T).T
+    for y, launches in launch(ranks.card_block_ell, 2, args=(blocks, x), backend="gloo",
+                              deadline=300):
+        assert launches["block_ell_matmul_xres2"] >= 1
+        assert float(np.abs(y - want).max()) <= 1e-5 * max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+def test_load_challenge_on_card(tmp_path):
+    """load_challenge(..., device="cuda") on a legacy-format artifact of a
+    PermutationKeynet LeNet_AvgPool: the public forward on the card equals
+    the host scipy oracle within 1e-5·max(1, scale)."""
+    _needs_card()
+    import keynet_tpu_torch as kt
+    import legacy_challenge
+    net = kt.models.LeNet_AvgPool(seed=0)
+    sensor, knet = kt.PermutationKeynet((1, 28, 28), net, seed=0, device="cpu")
+    layers = legacy_challenge.layers_of(knet)
+    path = str(tmp_path / "challenge.pkl")
+    legacy_challenge.write(path, (1, 28, 28), layers)
+    _, served = kt.challenge.load_challenge(path, device="cuda")
+    x = np.random.default_rng(0).standard_normal((4, 1, 28, 28)).astype(np.float32)
+    xc = sensor.fromtensor(x).encrypt().tensor().numpy()
+    y = served.forward(xc)
+    assert y.device.type == "cuda"
+    _close(y.cpu(), torch.from_numpy(legacy_challenge.oracle(layers, xc)), 1e-5)
