@@ -110,6 +110,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
                the 2020 release's pickle format under build/challenge/,
                load_challenge(device="cuda"), the public forward at B=64
                against the host scipy oracle within 1e-5*max(1, scale);
+               slice 9, [programs] (counts set to 0 just before and read
+               just after, the cold processes' counts added): the programs
+               users run, from keynet_tpu_torch.entry, .examples and
+               .scripts: entry() on the card against entry("cpu") within
+               1e-5*max(1, scale), nnz 323,491; the challenge bundle
+               (release_challenge.build_bundle, seed 2020) built on the
+               card and its embedding reproduced bit for bit by a cold
+               process holding only the bundle (--verify, no JAX loaded);
+               attack_bundle on it (6 channels, conv1's value sets 6/6, the
+               image recovered up to the dihedral group) and on its
+               StochasticKeynet twin (no structure); the Fig.-6 protocol
+               (1024 / 256 synthetic MNIST images, 2 epochs: keyed accuracy
+               == source); the vgg16.ipynb sensor recipe at 3x224x224 (PNG
+               round trip correlation > 0.95, in-memory decrypt < 1e-2);
+               the StochasticKeynet AllConvNet saved with its sensor and
+               served by python -m keynet_tpu_torch.scripts.serve in a cold
+               process at B=64 and 1024 with --check allconv:1, its outputs
+               bitwise equal to this process's, xresd launched in both;
   7. kernels   one row per Pallas function: each slot-walk entry at the
                shape its main path gave it (the depth-1 entry, which no core
                routes to on this card, at the shape the JAX package routes
@@ -143,9 +161,13 @@ converts the orth VGG-16 and the AllConvNet with the keynet_tpu_torch of
 DIR (default this checkout), saves their keyed outputs and forward times,
 and holds them against another tree's file (phase_outputs).
 
-    python3 chip_smoke.py --only vgg-stochastic|parallel|challenge
+    python3 chip_smoke.py --only vgg-stochastic|parallel|challenge|programs|serve-vgg
 
-builds, then runs that phase alone ([vgg-stochastic] with its kernel row).  Each phase's seconds are logged as "[time] ...".
+builds, then runs that phase alone ([vgg-stochastic] with its kernel row).
+serve-vgg is in no default run: it converts the orth VGG-16 at 3x224x224,
+saves it with its sensor (save_keynet, several minutes of zlib) and serves
+it in a cold process at B=1, 8, 32 with --check vgg16:5, bitwise against the
+converted net, the periodic kernel and xresd launched there.  Each phase's seconds are logged as "[time] ...".
 """
 
 import json
@@ -156,6 +178,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START_ENV = dict(os.environ)   # what the cold child processes of [programs] inherit
 TOL_F32, TOL_BF16 = 1e-5, 1e-4
 
 def log(*a):
@@ -576,6 +599,7 @@ def vgg_keynet(kt):
 
 
 def phase_main_allconv(kt, block_ell):
+    import numpy as np
     import torch
     net, sensor, knet = allconv_keynet(kt)
     log("[main] route sensor: %s" % route_str(sensor.op()))
@@ -615,7 +639,12 @@ def phase_main_allconv(kt, block_ell):
     never_routed(launches, "the slice-1 path")
     for B in (64, 1024):
         layer_breakdown("AllConvNet", knet, xcs[B])
-    return {"allconv": (knet, xcs), "narrow": (nk, xn)}, launches
+    # the B=1 image of the cold serve's --check in [programs] (serve.serve),
+    # so that phase_kernels holds xresd at that operand too
+    x1 = np.random.default_rng(0).standard_normal((1, *net.inshape)).astype(np.float32)
+    xcs[1] = sensor.fromtensor(torch.from_numpy(x1).cuda()).encrypt().tensor()
+    return {"allconv": (knet, xcs), "allconv keynet": (net, sensor, knet),
+            "narrow": (nk, xn)}, launches
 
 
 def phase_main_vgg(kt, block_ell):
@@ -866,6 +895,8 @@ def phase_kernels(block_ell, bk, paths, by_path, peaks):
             "AllConvNet conv1 core, B=64 (full width)", peaks)
     measure(be, bk, be.block_ell_matmul_xresd, {"depth": 4}, knet, xcs[1024],
             "AllConvNet conv1 core, B=1024", peaks)
+    measure(be, bk, be.block_ell_matmul_xresd, {"depth": 4}, knet, xcs[1],
+            "AllConvNet conv1 core, B=1 (the cold serve's --check in [programs])", peaks)
     for fn in (be.block_ell_matmul_xres, be.block_ell_matmul_grid):
         measure(be, bk, fn, {}, knet, xcs[64], "AllConvNet conv1 core, B=64", peaks)
     # xres and grid where the slot walk is FMA-bound: the share of the
@@ -1859,6 +1890,211 @@ def phase_challenge(kt):
             json.dumps({n: l.nnz() for n, l in served.layers().items() if l != "relu"}), err))
 
 
+# --------------------------------------------------------------- slice 9
+def run_child(kt, module_args, what, timeout=900):
+    """python -m MODULE ARGS --device cuda in a fresh process: the checkout of
+    ``kt`` first on its path, the environment this script started with (no
+    variable a phase set since), the kernels loaded from build/kernels/ as
+    [build] left them.  Raises on a non-zero exit; returns (stdout, s)."""
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(kt.__file__)))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m"] + module_args + ["--device", "cuda"],
+                       cwd=tree, env=dict(START_ENV, PYTHONPATH=tree),
+                       capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t
+    if r.returncode:
+        raise AssertionError("%s: %s exited %d:\n%s\n%s" % (
+            what, " ".join(module_args), r.returncode, r.stdout[-4000:], r.stderr[-4000:]))
+    return r.stdout, secs
+
+
+def tagged(stdout, tag):
+    """The JSON after the last line of ``stdout`` that starts with ``tag``."""
+    lines = [l for l in stdout.splitlines() if l.startswith(tag)]
+    if not lines:
+        raise AssertionError("no %r line in:\n%s" % (tag, stdout[-4000:]))
+    return json.loads(lines[-1][len(tag):])
+
+
+def cold_serve(kt, snap, batches, check, in_process, what):
+    """Serve ``snap`` with python -m keynet_tpu_torch.scripts.serve in a cold
+    process on the card; its outputs must be bitwise equal to
+    ``in_process(B, inputs)``'s and it must launch xresd.  Returns (the
+    child's launches, its summary, its seconds)."""
+    import numpy as np
+    ypath = snap[:-len(".npz")] + "_served.npz"
+    out, secs = run_child(kt, ["keynet_tpu_torch.scripts.serve", "--snapshot", snap,
+                               "--batches", ",".join(map(str, batches)), "--check", check,
+                               "--out", ypath], what, timeout=1800)
+    for line in out.splitlines():
+        if line.startswith("[serve] ") and not line.startswith("[serve] summary"):
+            log("[%s] child: %s" % (what, line[len("[serve] "):]))
+    summary, launches = tagged(out, "[serve] summary "), tagged(out, "[serve] launches ")
+    with np.load(ypath) as z:
+        for B in batches:
+            want = in_process(B)
+            if not np.array_equal(z["B%d" % B], want):
+                raise AssertionError("[%s] B=%d: the cold process's output is not bitwise "
+                                     "equal to this process's (max|diff| %.3g)"
+                                     % (what, B, float(np.abs(z["B%d" % B] - want).max())))
+    log("[%s] cold serve (%.1f s with the process start): outputs bitwise equal to this "
+        "process's at B = %s; check %s; launches %s" % (what, secs, batches,
+                                                         json.dumps(summary["check"]),
+                                                         json.dumps(launches)))
+    if launches["block_ell_matmul_xresd"] <= 0:
+        raise AssertionError("[%s] the cold process launched no block_ell_matmul_xresd" % what)
+    return launches, summary, secs
+
+
+def phase_programs(kt, block_ell, allconv=None):
+    """Slice 9, [programs] (the counts set to 0 just before, read just after;
+    the cold processes' counts added): entry() on the card against the CPU;
+    the challenge bundle built on the card, reproduced bitwise by a cold
+    process, and attacked with its stochastic twin; the Fig.-6 protocol; the
+    vgg16.ipynb sensor recipe at 3x224x224; a cold serve of the AllConvNet
+    bundle, bitwise against this process's forward.  ``allconv`` is [main]'s
+    (net, sensor, knet) from allconv_keynet; None converts it here."""
+    import torch
+    from keynet_tpu_torch import bench_kernels
+    from keynet_tpu_torch.entry import entry
+    from keynet_tpu_torch.examples import release_challenge, vgg16_sensor_demo
+    from keynet_tpu_torch.scripts import attack_bundle, run_fiberbundle_fig6, serve
+    base = os.path.join(ROOT, "build", "programs")
+    block_ell.reset_launches()
+    secs = {}
+
+    t = time.perf_counter()
+    fn, (x,) = entry("cuda")
+    y = fn(x)
+    fn_cpu, (x_cpu,) = entry("cpu")
+    y_cpu = fn_cpu(x_cpu)
+    err, scale = float((y.cpu() - y_cpu).abs().max()), float(y_cpu.abs().max())
+    check(err, scale, TOL_F32, "[programs] entry cuda vs cpu")
+    if fn.knet.num_parameters() != 323491:
+        raise AssertionError("[programs] entry nnz %d != 323491" % fn.knet.num_parameters())
+    secs["entry"] = time.perf_counter() - t
+    log("[programs] entry: fn(x) %s on %s vs cpu max|diff| %.3g (scale %.3g), nnz %d"
+        % (tuple(y.shape), y.device, err, scale, fn.knet.num_parameters()))
+
+    t = time.perf_counter()
+    bdir = os.path.join(base, "challenge", "perm")
+    bundle = release_challenge.build_bundle(bdir, seed=2020, device="cuda", verbose=False)
+    secs["release"] = time.perf_counter() - t
+    out, secs["cold verify"] = run_child(
+        kt, ["keynet_tpu_torch.examples.release_challenge", "--verify", bdir], "programs")
+    v = tagged(out, "VERIFY ")
+    log("[programs] challenge bundle built on the card (nnz %d, %d B npz, %.2f s); cold "
+        "process (%.1f s): %s" % (bundle["nnz"], os.path.getsize(bundle["keynet"]),
+                                  secs["release"], secs["cold verify"], json.dumps(v)))
+    if not v["equal"] or v["jax_loaded"]:
+        raise AssertionError("[programs] the cold process did not reproduce the embedding "
+                             "bit for bit: %s" % v)
+
+    t = time.perf_counter()
+    rep = attack_bundle.run(os.path.join(base, "attack"), seed=2020,
+                            secret_image=bundle["secret_image"], perm_dir=bdir,
+                            device="cuda", verbose=False)
+    secs["attack"] = time.perf_counter() - t
+    log("[programs] attack: %s" % json.dumps(rep))
+    perm, stoch = rep["permutation"], rep["stochastic"]
+    if not (perm.get("channels_found") == 6 and perm.get("conv1_valuesets_exact") == "6/6"
+            and perm.get("image_corr_best_dihedral", 0) > 0.99):
+        raise AssertionError("[programs] the permutation bundle was not broken: %s" % perm)
+    if stoch["channels_found"] or not stoch["status"].startswith("no permutation structure"):
+        raise AssertionError("[programs] the attack found structure in the stochastic "
+                             "bundle: %s" % stoch)
+
+    t = time.perf_counter()
+    fig6 = run_fiberbundle_fig6.run(epochs=2, n_train=1024, n_test=256, device="cuda",
+                                    verbose=False)
+    secs["fig6"] = time.perf_counter() - t
+    y, yk = fig6["logits_source"], fig6["logits_keyed"]
+    err, scale = float(abs(yk - y).max()), float(abs(y).max())
+    log("[programs] Fig. 6 (1024 train / 256 test synthetic MNIST, 2 epochs): %s; test-set "
+        "logits %s, keyed vs source max|diff| %.3g (scale %.3g), %d distinct argmax" % (
+            json.dumps({k: v for k, v in fig6.items()
+                        if k not in ("params", "logits_source", "logits_keyed")}),
+            y.shape, err, scale, len(set(y.argmax(1).tolist()))))
+    if fig6["retrained_keyed"] != fig6["retrained_on_sim"]:
+        raise AssertionError("[programs] Fig. 6: keyed accuracy %r != source %r"
+                             % (fig6["retrained_keyed"], fig6["retrained_on_sim"]))
+    if y.shape != (256, 10):
+        raise AssertionError("[programs] Fig. 6: test-set logits of shape %s" % (y.shape,))
+    check(err, scale, TOL_F32, "[programs] Fig. 6 keyed vs source logits on the test set")
+
+    t = time.perf_counter()
+    sr = vgg16_sensor_demo.run(out=os.path.join(base, "vgg16_sensor_demo"), device="cuda",
+                               verbose=False)
+    secs["sensor 224"] = time.perf_counter() - t
+    log("[programs] sensor recipe 3x224x224: %s" % json.dumps(
+        {k: sr[k] for k in ("route", "key_shape", "keygen_s", "encrypt_ms",
+                            "decrypt_first_ms", "encrypt_warm_ms", "decrypt_warm_ms",
+                            "png_corr", "decrypt_max_err")}))
+    if not (sr["png_corr"] > 0.95 and sr["decrypt_max_err"] < 1e-2):
+        raise AssertionError("[programs] the sensor recipe's round trip failed: corr %.4f, "
+                             "max err %.3g" % (sr["png_corr"], sr["decrypt_max_err"]))
+
+    t = time.perf_counter()
+    net, sensor, knet = allconv or allconv_keynet(kt)
+    snap = os.path.join(ROOT, "build", "bundles", "allconv_keyed.npz")
+    os.makedirs(os.path.dirname(snap), exist_ok=True)
+    t_save = time.perf_counter()
+    kt.save_keynet(snap, knet, sensor=sensor, include_keys=True)
+    save_s = time.perf_counter() - t_save
+    del net, sensor, knet
+    here = serve.serve(snap, [64, 1024], reps=1, device="cuda", verbose=False)
+    child, summary, _ = cold_serve(kt, snap, [64, 1024], "allconv:1",
+                                   lambda B: here["outputs"][B], "programs")
+    secs["serve"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    parent = dict(block_ell.LAUNCHES)
+    log("[programs] serve AllConvNet bundle %d B (save_keynet with its sensor %.2f s; load "
+        "%.2f s in the cold process) on %s: %s" % (
+            os.path.getsize(snap), save_s, summary["load_s"], bench_kernels.card(), json.dumps(
+                {B: {k: r[k] for k in ("warm_ms", "imgs_per_s", "cold_ms")}
+                 for B, r in summary["batches"].items()})))
+    if parent["block_ell_matmul_xresd"] <= 0:
+        raise AssertionError("block_ell_matmul_xresd was not launched on the slice-9 path")
+    launches = {n: parent[n] + child[n] for n in block_ell.ENTRIES}
+    log("[programs] launches: this process %s, the cold serve %s" % (
+        json.dumps(parent), json.dumps(child)))
+    never_routed(launches, "the slice-9 path")
+    log("[programs] seconds: %s" % json.dumps(secs))
+    return launches
+
+
+def phase_serve_vgg(kt, block_ell):
+    """--only serve-vgg: the orth VGG-16 at 3x224x224 converted, saved with
+    its sensor, and served in a cold process at B = 1, 8, 32 with --check
+    vgg16:5; the outputs bitwise equal to the converted net's in this
+    process, the periodic kernel and xresd launched in the child."""
+    import torch
+    from keynet_tpu_torch import bench_kernels
+    from keynet_tpu_torch.scripts import serve
+    net, sensor, knet = vgg_keynet(kt)
+    knet._build()   # the ops on the card: kernel-routed cores drop the host's _Texp
+    snap = os.path.join(ROOT, "build", "bundles", "vgg_orth.npz")
+    os.makedirs(os.path.dirname(snap), exist_ok=True)
+    t = time.perf_counter()
+    kt.save_keynet(snap, knet, sensor=sensor, include_keys=True)
+    save_s = time.perf_counter() - t
+    log("[serve-vgg] save_keynet with its sensor: %.1f s, %d B (device_bytes %d on the card)"
+        % (save_s, os.path.getsize(snap), knet.device_bytes()))
+    knet_in = next(l for l in knet.layers().values() if l != "relu").shape[1]
+
+    def in_process(B):
+        xc = serve.inputs(sensor, knet_in, B, net.inshape, "cuda")
+        return knet.forward(xc).cpu().numpy()
+    child, summary, secs = cold_serve(kt, snap, [1, 8, 32], "vgg16:5", in_process,
+                                      "serve-vgg")
+    log("[serve-vgg] load %.1f s in the cold process (%.1f s in all) on %s; %s" % (
+        summary["load_s"], secs, bench_kernels.card(), json.dumps(summary["batches"])))
+    if child["periodic_block_ell_matvec"] <= 0:
+        raise AssertionError("[serve-vgg] the cold process launched no periodic kernel")
+    torch.cuda.synchronize()
+    return child
+
+
 def phase_outputs(kt, path, against=None):
     """The keyed outputs and forward times of the orth VGG-16 (B=1, 8, 32)
     and the StochasticKeynet AllConvNet (B=64, 1024) on chip_smoke's seeded
@@ -2041,7 +2277,8 @@ def main(argv=None):
     ap.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--tree", metavar="DIR", default=ROOT)
     ap.add_argument("--against", metavar="FILE")
-    ap.add_argument("--only", choices=["vgg-stochastic", "parallel", "challenge"])
+    ap.add_argument("--only", choices=["vgg-stochastic", "parallel", "challenge", "programs",
+                                       "serve-vgg"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2065,6 +2302,13 @@ def main(argv=None):
             {"slice 8 (parallel)": timed("slice 8 (parallel)", phase_parallel, kt, block_ell)}))
     elif args.only == "challenge":
         timed("slice 8 (challenge)", phase_challenge, kt)
+    elif args.only == "programs":
+        log("[main] launches by path: %s" % json.dumps(
+            {"slice 9 (programs)": timed("slice 9 (programs)", phase_programs, kt, block_ell)}))
+    elif args.only == "serve-vgg":
+        log("[main] launches by path: %s" % json.dumps(
+            {"slice 9 (serve-vgg)": timed("slice 9 (serve-vgg)", phase_serve_vgg, kt,
+                                          block_ell)}))
     elif args.ab:
         versions = [(tag, build_version(block_ell, os.path.abspath(d)))
                     for tag, d in (a.split("=", 1) for a in args.ab)]
@@ -2092,6 +2336,8 @@ def main(argv=None):
         by_path["slice 8 (parallel)"] = timed("slice 8 (parallel)", phase_parallel, kt,
                                               block_ell)
         timed("slice 8 (challenge)", phase_challenge, kt)
+        by_path["slice 9 (programs)"] = timed("slice 9 (programs)", phase_programs, kt,
+                                              block_ell, paths.pop("allconv keynet"))
         log("[main] launches by path: %s" % json.dumps(by_path))
         rows = timed("kernels", phase_kernels, block_ell, bk, paths, by_path, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))

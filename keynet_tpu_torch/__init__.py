@@ -23,7 +23,9 @@ The paper's workflow runs end to end: train a source net
 (``serialize.save_keynet``) and serve it elsewhere (``load_keynet``).
 ``parallel`` serves it over a (dp, tp) grid of torch.distributed ranks and
 ``train.make_sharded_train_step`` trains over one; ``challenge`` loads the
-2020 challenge artifact.
+2020 challenge artifact.  The programs users run are ``entry`` and the
+subpackages ``examples`` and ``scripts`` (``python -m
+keynet_tpu_torch.examples.lenet_demo`` and so on), imported on demand.
 
 Entry points take ``device=`` (default "cuda") and raise without a card
 unless device="cpu" is given.

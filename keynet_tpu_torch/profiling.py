@@ -63,6 +63,21 @@ def trace(name, trace_dir=None):
         prof.export_chrome_trace(os.path.join(trace_dir, name + ".json"))
 
 
+def timed_ms(device, fn, *args):
+    """(fn(*args), its milliseconds): CUDA events on the card, the host
+    clock elsewhere."""
+    if torch.device(device).type == "cuda":
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args)
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+    t = time.perf_counter()
+    out = fn(*args)
+    return out, 1e3 * (time.perf_counter() - t)
+
+
 def annotate(name):
     """A named span inside a trace."""
     return torch.profiler.record_function(name)

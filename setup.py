@@ -13,7 +13,9 @@ setup(
     name="keynet_tpu",
     version="0.1.0",
     packages=["keynet_tpu", "keynet_tpu.models", "keynet_tpu.ops", "keynet_tpu.parallel",
-              "keynet_tpu_torch", "keynet_tpu_torch.models", "keynet_tpu_torch.ops"],
+              "keynet_tpu_torch", "keynet_tpu_torch.models", "keynet_tpu_torch.ops",
+              "keynet_tpu_torch.parallel", "keynet_tpu_torch.examples",
+              "keynet_tpu_torch.scripts"],
     ext_modules=[
         Extension(
             "keynet_tpu._native",

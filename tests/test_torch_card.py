@@ -433,3 +433,47 @@ def test_load_challenge_on_card(tmp_path):
     y = served.forward(xc)
     assert y.device.type == "cuda"
     _close(y.cpu(), torch.from_numpy(legacy_challenge.oracle(layers, xc)), 1e-5)
+
+
+@pytest.mark.cuda
+def test_entry_on_card():
+    """entry("cuda")'s fn(x) against entry("cpu")'s within 1e-5·max(1, scale)."""
+    _needs_card()
+    from keynet_tpu_torch.entry import entry
+    fn, (x,) = entry("cuda")
+    fn_cpu, (x_cpu,) = entry("cpu")
+    assert torch.equal(x.cpu(), x_cpu)
+    y = fn(x)
+    assert y.device.type == "cuda" and fn.knet.num_parameters() == 323491
+    _close(y.cpu(), fn_cpu(x_cpu), 1e-5)
+
+
+@pytest.mark.cuda
+def test_serve_cold_process_on_card(tmp_path):
+    """StochasticKeynet AllConvNet(seed=1) (3x32x32, alpha 2, blocksize 8)
+    saved with its sensor and served by ``python -m
+    keynet_tpu_torch.scripts.serve`` in a fresh process on the card: its
+    outputs are bitwise equal to serve() in this process on the same
+    bundle, its check holds, and conv1's core launched xresd there."""
+    _needs_card()
+    import json
+    import os
+    import subprocess
+    import sys
+    import keynet_tpu_torch as kt
+    from keynet_tpu_torch.scripts import serve
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sensor, knet = kt.StochasticKeynet((3, 32, 32), kt.models.AllConvNet(seed=1), alpha=2,
+                                       blocksize=8, seed=0, device="cuda")
+    snap, out = str(tmp_path / "allconv.npz"), str(tmp_path / "y.npz")
+    kt.save_keynet(snap, knet, sensor=sensor, include_keys=True)
+    r = subprocess.run([sys.executable, "-m", "keynet_tpu_torch.scripts.serve", "--snapshot",
+                        snap, "--batches", "64", "--reps", "2", "--check", "allconv:1",
+                        "--out", out], cwd=root, capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=root))
+    assert r.returncode == 0, r.stdout + r.stderr
+    line = [l for l in r.stdout.splitlines() if l.startswith("[serve] launches ")][-1]
+    assert json.loads(line[len("[serve] launches "):])["block_ell_matmul_xresd"] >= 1
+    here = serve.serve(snap, [64], reps=1, device="cuda", verbose=False)
+    with np.load(out) as z:
+        assert np.array_equal(z["B64"], here["outputs"][64])
