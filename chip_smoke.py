@@ -9,7 +9,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
                the VGG conversion needs it) and the four CUDA sources
                (csrc/block_ell.cu, block_ell_xres.cu, block_ell_grid.cu and
                periodic_block_ell.cu, one nvcc each for sm_90a, started
-               together) from this checkout;
+               together) from this checkout; the tensor-core instructions
+               (HGMMA, HMMA) of every kernel from cuobjdump -sass: each bf16
+               kernel of the slot walk and the periodic kernel must have
+               some, each f32 kernel none;
   2. parity    every slot-walk entry (block_ell_matmul, xres, xres2, xresd at
                depths 3 and 4, grid) against its plain PyTorch version on
                seeded random Block-ELL operands (f32 and bf16 tiles, B in
@@ -26,7 +29,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
                boundaries, at every row tile, the grid kernel's tile copies
                held equal to the count its plan's walk gives; then id-0 slots
                that point at an all-inf x block must add nothing, in every
-               entry;
+               entry, f32 and bf16 tiles;
   3. main path, slice 1 (launch counts set to 0 just before, read just
                after): StochasticKeynet AllConvNet (3x32x32, alpha=2,
                blocksize 8, seed 0, AllConvNet(seed=1)) at B=64 and B=1024,
@@ -48,6 +51,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
                then one torch.profiler trace of the forward at B=1
                (keynet_tpu_torch.profiling.trace) and the device's busy and
                idle share of the traced window;
+               slice 10, [vgg-bf16] (counts set to 0 just before, read just
+               after): the same VGG-16 converted with TILE_DTYPE='bfloat16'
+               (run_vgg_orth_224.py --tile-dtype bfloat16; the slot walk and
+               the periodic kernel multiply on the tensor cores): conversion
+               seconds, routes, cores, device memory beside the f32 net's;
+               keyed vs source at B=1, 8, 32 within 3e-2*max(1, scale);
+               launches as for slice 2; every kernel-routed core held
+               against its plain version at the operands the bf16 forward
+               fed it within 1e-4*max(1, scale); per-link ms at B=1 and 32;
   5. main path, slice 3 (counts set to 0 just before, read just after):
                the kernel bench, keynet_tpu_torch.bench_kernels, with fewer
                trials, in its three modes (kernel bench, depth sweep, depth
@@ -140,7 +152,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
                with the shared memory of one block an SM), and the slot
                walk on that core's head and tail rows at B=1, 8, 32, xres
                and grid at B=1, and the kernel of the stochastic VGG's
-               largest kernel-routed core at B=1, 8 and 32: kernel, plain
+               largest kernel-routed core at B=1, 8 and 32; the bf16 rows:
+               the periodic kernel and the head and tail rows of the bf16
+               net's conv1_2 core at B=1, 8, 32, and the slot walk at
+               AllConvNet conv1 with its tiles cast to bf16 (held equal to
+               bf16 packing) at B=64 and 1024: kernel, plain
                version and library times (BSR torch.sparse.mm; torch.bmm over pre-gathered operands
                for the periodic kernel, gathers not timed) with CUDA events,
                the bound from the card's data-sheet rates, and for grid the
@@ -161,9 +177,14 @@ converts the orth VGG-16 and the AllConvNet with the keynet_tpu_torch of
 DIR (default this checkout), saves their keyed outputs and forward times,
 and holds them against another tree's file (phase_outputs).
 
-    python3 chip_smoke.py --only vgg-stochastic|parallel|challenge|programs|serve-vgg
+    python3 chip_smoke.py --only vgg-stochastic|vgg-stochastic-bf16|parallel|challenge|
+                                 programs|serve-vgg
 
 builds, then runs that phase alone ([vgg-stochastic] with its kernel row).
+vgg-stochastic-bf16 is in no default run: the stochastic VGG-16 of slice 7
+with TILE_DTYPE='bfloat16' (run_vgg_stochastic_224.py --tile-dtype
+bfloat16), routes against STOCH_ROUTES_BF16, keyed vs source within
+3e-2*max(1, scale), per-link ms, its largest kernel-routed core's bf16 row.
 serve-vgg is in no default run: it converts the orth VGG-16 at 3x224x224,
 saves it with its sensor (save_keynet, several minutes of zlib) and serves
 it in a cold process at B=1, 8, 32 with --check vgg16:5, bitwise against the
@@ -180,6 +201,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 START_ENV = dict(os.environ)   # what the cold child processes of [programs] inherit
 TOL_F32, TOL_BF16 = 1e-5, 1e-4
+# keyed vs source with bf16 tiles, the JAX scripts' limit for that mode
+# (scripts/run_vgg_orth_224.py:55, run_vgg_stochastic_224.py:61)
+TOL_SERVE_BF16 = 3e-2
 
 def log(*a):
     print(*a, flush=True)
@@ -250,8 +274,54 @@ def phase_build(root=ROOT):
     log("[build] nvcc %s (sm_90a, in parallel): %.1f s"
         % (" ".join(os.path.basename(v) for v in block_ell.SOURCES.values()),
            time.perf_counter() - t))
+    if os.path.abspath(root) == ROOT:   # another tree's kernels are its own
+        tensor_core_instructions(block_ell)
     from keynet_tpu_torch import bench_kernels
     return kt, block_ell, bench_kernels.card()
+
+
+# the sources whose bf16 instantiations multiply on the tensor cores
+TENSOR_CORE_LIBS = ("block_ell", "periodic_block_ell")
+
+
+def kernel_dtype(mangled):
+    """'bf16' or 'f32' from a kernel's mangled name: the tensor-core configs
+    (bw::Cfg) and __nv_bfloat16 instantiations are bf16, bc::Cfg<float> f32."""
+    if "bw3Cfg" in mangled or "__nv_bfloat16" in mangled:
+        return "bf16"
+    return "f32" if "CfgIf" in mangled else None
+
+
+def tensor_core_instructions(block_ell):
+    """Count the tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in
+    each kernel of each built library, from cuobjdump -sass.  Every bf16
+    kernel of the slot walk and the periodic kernel must have some, every
+    f32 kernel none (the f32 path stays IEEE fmaf); xres and grid are
+    printed (their bf16 stays on the FMA core)."""
+    cuobjdump = os.path.join(os.path.dirname(block_ell._nvcc()), "cuobjdump")
+    bad = []
+    for name, lib in sorted(block_ell._LIBS.items()):
+        sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        counts = {}
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split()[0]
+            counts[fn] = (part.count("HGMMA"), part.count("HMMA"))
+        by = {}
+        for fn, (hg, hm) in counts.items():
+            dt = kernel_dtype(fn)
+            by.setdefault(dt, []).append(hg + hm)
+            if name in TENSOR_CORE_LIBS and ((dt == "bf16") != (hg + hm > 0) or dt is None):
+                bad.append("%s %s: %s, %d HGMMA, %d HMMA" % (name, fn, dt, hg, hm))
+        log("[build] %s tensor-core instructions (HGMMA + HMMA) a kernel, by tile dtype: %s"
+            % (name, json.dumps(by)))
+        if name in TENSOR_CORE_LIBS and len(by.get("bf16", [])) != 5:
+            bad.append("%s: %d bf16 kernels, want one a row tile (5)"
+                       % (name, len(by.get("bf16", []))))
+    if bad:
+        raise AssertionError("[build] tensor cores: every bf16 kernel of the slot walk and "
+                             "periodic kernel must use them, no f32 kernel may: "
+                             + "; ".join(bad))
 
 
 # --------------------------------------------------------------- phase 2
@@ -436,13 +506,17 @@ def zero_slots_skipped(block_ell, entries):
     at is not finite (the contract, pallas_kernels.py:15-16): every row's
     first slot reads an all-inf x block through tile 0, which no other slot
     reads; each entry and the periodic kernel must equal the plain version
-    on x with that block zeroed, at row tiles 8, 64 and 128."""
+    on x with that block zeroed, at row tiles 8, 64 and 128, with f32 tiles
+    and with bf16 tiles (on the tensor cores 0 x inf is NaN, so a slot that
+    is not skipped shows)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(1)
     s0, P, R, n_rb, TN = 1, 4, 2, 9, 128
-    for B in (1, 33, 130):
-        x, tiles, ids, cols = random_block_ell(rng, B, n_rb, 6, 7, 7, 128, TN, torch.float32)
+    for (B, dtype, tol) in [(B, dt, tol) for dt, tol in ((torch.float32, TOL_F32),
+                                                         (torch.bfloat16, TOL_BF16))
+                            for B in (1, 33, 130)]:
+        x, tiles, ids, cols = random_block_ell(rng, B, n_rb, 6, 7, 7, 128, TN, dtype)
         for j in range(1, R):
             ids[s0 + j * P:s0 + (j + 1) * P] = ids[s0:s0 + P]
         cols = torch.remainder(cols, 6)
@@ -461,12 +535,13 @@ def zero_slots_skipped(block_ell, entries):
         torch.cuda.synchronize()
         for what, y, want in runs:
             if not bool(torch.isfinite(y).all()):
-                raise AssertionError("%s B=%d: an id-0 slot on inf x gave a non-finite "
-                                     "output" % (what, B))
-            check(float((y - want).abs().max()), float(want.abs().max()), TOL_F32,
-                  "%s B=%d, id-0 slots on inf x" % (what, B))
+                raise AssertionError("%s %s B=%d: an id-0 slot on inf x gave a non-finite "
+                                     "output" % (what, dtype, B))
+            check(float((y - want).abs().max()), float(want.abs().max()), tol,
+                  "%s %s B=%d, id-0 slots on inf x" % (what, dtype, B))
     log("[parity] id-0 slots on inf x add nothing: every slot-walk entry and the "
-        "periodic kernel, B = 1, 33, 130")
+        "periodic kernel, f32 and bf16 tiles (bf16: the tensor cores, where a zero tile "
+        "times inf would be NaN), B = 1, 33, 130")
 
 
 # --------------------------------------------------------------- phase 3
@@ -543,10 +618,11 @@ def never_routed(launches, where):
             raise AssertionError("%s launched %d times on %s" % (name, launches[name], where))
 
 
-def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5, tag="main"):
+def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5, tag="main",
+                    tol=TOL_F32):
     """Encrypt a seeded batch, hold the keyed forward against the source
-    forward, and time the keyed forward; returns (cipher batch, keyed
-    forwards run)."""
+    forward within tol·max(1, scale), and time the keyed forward; returns
+    (cipher batch, keyed forwards run)."""
     import numpy as np
     import torch
     x = np.random.default_rng(seed).standard_normal((B, *net.inshape)).astype(np.float32)
@@ -560,8 +636,11 @@ def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5, 
                              % (label, tuple(y.shape), bool(torch.isfinite(y).all())))
     err = float((y - ys).abs().max())
     scale = float(ys.abs().max())
-    check(err, scale, TOL_F32, "%s keyed vs source" % label)
-    res = {"B": B, "max_abs_err": err, "scale": scale}
+    check(err, scale, tol, "%s keyed vs source" % label)
+    # how far the source outputs of the batch stray from their mean: the part
+    # of the output that depends on the image, which the error is set against
+    res = {"B": B, "max_abs_err": err, "scale": scale, "limit": tol * max(1.0, scale),
+           "batch_spread": float((ys - ys.mean(0)).abs().max())}
     forwards = 1
     if timing:
         ms, times = cuda_ms(lambda: knet.forward(xc), reps=reps, warmup=1)
@@ -583,9 +662,10 @@ def allconv_keynet(kt):
     return net, sensor, knet
 
 
-def vgg_keynet(kt):
+def vgg_keynet(kt, tag="vgg"):
     """The Givens-orthogonal VGG-16 at 3x224x224 of
-    scripts/run_vgg_orth_224.py: (source net, keyed sensor, keyed net)."""
+    scripts/run_vgg_orth_224.py, its tiles in GLOBAL['TILE_DTYPE']: (source
+    net, keyed sensor, keyed net)."""
     net = kt.models.VGG16(seed=5)
     t = time.perf_counter()
     sensor, knet = kt.Keynet((3, 224, 224), net, global_geometric="identity",
@@ -593,8 +673,8 @@ def vgg_keynet(kt):
                              blocksize=14, local_photometric="uniform_random_affine",
                              beta=1.0, gamma=1.0, memoryorder="channel", seed=0,
                              device="cuda")
-    log("[vgg] conversion: %.1f s (host), nnz %d" % (time.perf_counter() - t,
-                                                     knet.num_parameters()))
+    log("[%s] conversion: %.1f s (host), nnz %d" % (tag, time.perf_counter() - t,
+                                                    knet.num_parameters()))
     return net, sensor, knet
 
 
@@ -647,62 +727,110 @@ def phase_main_allconv(kt, block_ell):
             "narrow": (nk, xn)}, launches
 
 
-def phase_main_vgg(kt, block_ell):
+def phase_main_vgg(kt, block_ell, bf16=False, f32_memory=None):
     """Slice 2: the Givens-orthogonal VGG-16 at 3x224x224 through kt.Keynet,
-    keyed vs source at B=1, 8 and 32, with the launches read right after."""
+    keyed vs source at B=1, 8 and 32, with the launches read right after.
+    With ``bf16``, slice 10's [vgg-bf16]: the same net converted with
+    TILE_DTYPE='bfloat16' (run_vgg_orth_224.py --tile-dtype bfloat16), its
+    device memory beside slice 2's (``f32_memory``), keyed vs source within
+    TOL_SERVE_BF16, every kernel-routed core held against its plain version
+    at the operand the bf16 forward fed it (TOL_BF16), per-link ms at B=1
+    and 32, no trace."""
     import torch
+    tag, label = ("vgg-bf16", "VGG16 orth bf16") if bf16 else ("vgg", "VGG16 orth")
     alloc0 = torch.cuda.memory_allocated()
-    net, sensor, knet = vgg_keynet(kt)
-    log("[vgg] route sensor: %s" % route_str(sensor.op()))
+    with global_keys(kt, TILE_DTYPE="bfloat16" if bf16 else "float32"):
+        net, sensor, knet = vgg_keynet(kt, tag)
+    log("[%s] route sensor: %s" % (tag, route_str(sensor.op())))
     for name, l in knet.layers().items():
         if l != "relu":
-            log("[vgg] route %s: %s" % (name, route_str(l.op())))
+            log("[%s] route %s: %s" % (tag, name, route_str(l.op())))
     cores = block_ell_cores(sensor, knet)
-    for name, c, _ in cores:
-        log("[vgg] core %s: %s" % (name, json.dumps(dict(
-            rows=int(c.tile_ids.shape[0]), KB=int(c.tile_ids.shape[1]),
-            unique_tiles=int(c.tiles.shape[0]), period=c.period,
-            nonzero_slots=int((c.tile_ids > 0).sum())))))
+    for name, c, per_image in cores:
+        res = dict(rows=int(c.tile_ids.shape[0]), KB=int(c.tile_ids.shape[1]),
+                   unique_tiles=int(c.tiles.shape[0]), period=c.period,
+                   nonzero_slots=int((c.tile_ids > 0).sum()))
+        if bf16:
+            res.update(tiles=str(c.tiles.dtype), apply={
+                "B=%d" % B: core_apply(block_ell, c, B * per_image) for B in (1, 8, 32)})
+        log("[%s] core %s: %s" % (tag, name, json.dumps(res)))
     gate = int(kt.globals.GLOBAL.get("PERIODIC_EXPAND_BYTES", 512 << 20))
     texp = sum(c._expand_bytes() for _, c, _ in cores
                if c.period is not None and c._expand_bytes() <= gate)
     knet._build()
-    log("[vgg] device_bytes: %d (keyed net on the card), sensor %d; the expanded "
+    log("[%s] device_bytes: %d (keyed net on the card), sensor %d; the expanded "
         "period tiles keynet_tpu keeps besides (_Texp, within PERIODIC_EXPAND_BYTES): %d"
-        % (knet.device_bytes(), sensor.device_bytes(), texp))
-    device_memory("vgg", "VGG16 orth", sensor, knet, alloc0)
+        % (tag, knet.device_bytes(), sensor.device_bytes(), texp))
+    memory = device_memory(tag, label, sensor, knet, alloc0)
+    if f32_memory is not None:
+        log("[vgg-bf16] device memory against the f32 net's ([vgg]): %s" % json.dumps({
+            k: [memory[k], f32_memory[k], memory[k] / f32_memory[k]]
+            for k in ("memory_allocated", "device_bytes")}))
 
     block_ell.reset_launches()
     xcs, forwards = {}, {}
     for B in (1, 8, 32):
-        xcs[B], forwards[B] = keyed_vs_source(kt, net, sensor, knet, B, 100 + B,
-                                              "VGG16 orth", reps=5 if B < 32 else 3)
+        xcs[B], forwards[B] = keyed_vs_source(
+            kt, net, sensor, knet, B, 100 + B, label, reps=5 if B < 32 else 3, tag=tag,
+            tol=TOL_SERVE_BF16 if bf16 else TOL_F32)
     torch.cuda.synchronize()
     launches = dict(block_ell.LAUNCHES)
-    log("[vgg] launches: %s" % json.dumps(launches))
+    log("[%s] launches: %s" % (tag, json.dumps(launches)))
     periodic = [(n, c, m) for n, c, m in cores if c.period is not None]
     if not periodic:
-        raise AssertionError("no periodic Block-ELL core on the VGG path")
+        raise AssertionError("no periodic Block-ELL core on the %s path" % label)
     want = sum(forwards[B] * sum("periodic_block_ell_matvec"
                                  in entries_of(block_ell, c, B * m)
                                  for n, c, m in periodic if n != "sensor")
                for B in forwards)
-    log("[vgg] periodic cores: %s; periodic launches %d, at least %d wanted"
-        % ([n for n, _, _ in periodic], launches["periodic_block_ell_matvec"], want))
+    log("[%s] periodic cores: %s; periodic launches %d, at least %d wanted"
+        % (tag, [n for n, _, _ in periodic], launches["periodic_block_ell_matvec"], want))
     if launches["periodic_block_ell_matvec"] < want or want == 0:
         raise AssertionError("periodic_block_ell_matvec launched %d times, want >= %d"
                              % (launches["periodic_block_ell_matvec"], want))
     routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for _, c, m in cores
                                   for B in forwards)))
-    log("[vgg] entries routed by the driven Block-ELL cores: %s" % routed)
+    log("[%s] entries routed by the driven Block-ELL cores: %s" % (tag, routed))
     for name in routed:
         if launches[name] <= 0:
-            raise AssertionError("%s was not launched on the VGG path" % name)
-    never_routed(launches, "the VGG path")
-    for B in (1, 8, 32):
-        layer_breakdown("VGG16 orth", knet, xcs[B])
-    trace_forward(kt, knet, xcs[1], "vgg_orth_forward_B1")
-    return {"vgg": (knet, xcs, cores)}, launches
+            raise AssertionError("%s was not launched on the %s path" % (name, label))
+    never_routed(launches, "the %s path" % label)
+    if bf16:
+        hold_cores_at_forward(block_ell, sensor, knet, cores, xcs, net.inshape)
+    for B in ((1, 32) if bf16 else (1, 8, 32)):
+        layer_breakdown(label, knet, xcs[B])
+    if not bf16:
+        trace_forward(kt, knet, xcs[1], "vgg_orth_forward_B1")
+    return {tag: (knet, xcs, cores), tag + " memory": memory}, launches
+
+
+def hold_cores_at_forward(block_ell, sensor, knet, cores, xcs, inshape):
+    """Every Block-ELL core of a keyed sensor and net that routes to a kernel,
+    held against the kernel's plain version at the operands the keyed
+    forward (and the encryption) fed it at each batch of ``xcs``: the
+    operands are recorded as the cores hand them on (fed_operands), then go
+    through the routed wrapper and the plain version (hold_fed, TOL_BF16 for
+    bf16 tiles).  Fails where a kernel-routed core was fed nothing."""
+    import numpy as np
+    import torch
+    held = {}
+    for B, xc in xcs.items():
+        x = np.random.default_rng(100 + B).standard_normal((B, *inshape)).astype(np.float32)
+        with fed_operands((name, c) for name, c, _ in cores) as rec:
+            sensor.fromtensor(torch.from_numpy(x).cuda()).encrypt()
+            knet.forward(xc)
+        torch.cuda.synchronize()
+        for entry, line in hold_fed(block_ell, rec.calls, "B=%d" % B):
+            log("[vgg-bf16] held %s" % line)
+            held[entry] = held.get(entry, 0) + 1
+        fed = {name for name, _, _, _ in rec.calls}
+        for name, c, m in cores:
+            if entries_of(block_ell, c, B * m) and name not in fed:
+                raise AssertionError("[vgg-bf16] %s routes to a kernel at B=%d and was fed "
+                                     "nothing" % (name, B))
+        del rec
+    log("[vgg-bf16] kernel-routed cores held against their plain versions at the forward's "
+        "operands (B = %s): %s" % (sorted(xcs), json.dumps(held)))
 
 
 def trace_forward(kt, knet, xc, name):
@@ -785,8 +913,10 @@ def core_input(knet, xc, layer="conv1"):
 
 def bsr_library_ms(tiles, tile_ids, col_blk, x):
     """torch.sparse.mm on a BSR tensor of the same expanded tiles (the
-    yardstick; the port never calls it)."""
+    yardstick; the port never calls it): f32 values for f32 tiles, bf16
+    values and x for bf16 tiles."""
     import torch
+    dt = torch.float32 if tiles.dtype == torch.float32 else tiles.dtype
     ids = tile_ids.long()
     cols = col_blk.long()
     n_rb, KB = ids.shape
@@ -798,10 +928,10 @@ def bsr_library_ms(tiles, tile_ids, col_blk, x):
     nz_s = ids_s > 0
     crow = torch.zeros(n_rb + 1, dtype=torch.int64, device=ids.device)
     crow[1:] = torch.cumsum(nz_s.sum(1), 0)
-    W = torch.sparse_bsr_tensor(crow, cols_s[nz_s], tiles[ids_s[nz_s]].float(),
+    W = torch.sparse_bsr_tensor(crow, cols_s[nz_s], tiles[ids_s[nz_s]].to(dt),
                                 size=(n_rb * TM, x.shape[1]))
-    xT = x.T.contiguous()
-    y = torch.sparse.mm(W, xT).T
+    xT = x.to(dt).T.contiguous()
+    y = torch.sparse.mm(W, xT).T.float()
     ms, _ = cuda_ms(lambda: torch.sparse.mm(W, xT), reps=5)
     return ms, y
 
@@ -858,9 +988,10 @@ def measure(block_ell, bk, fn, kw, model, xc, where, peaks):
                            inner.col_blk, x, where, peaks)
 
 
-def phase_kernels(block_ell, bk, paths, by_path, peaks):
+def phase_kernels(kt, block_ell, bk, paths, by_path, peaks):
     """One row per Pallas function (launches: summed over the main paths,
-    and each path's count), and the stochastic VGG's kernel row."""
+    and each path's count), the stochastic VGG's kernel row, and the bf16
+    rows of the slot walk and the periodic kernel (bf16_kernel_rows)."""
     import numpy as np
     import torch
     launches = {n: sum(p[n] for p in by_path.values()) for n in block_ell.ENTRIES}
@@ -933,20 +1064,101 @@ def phase_kernels(block_ell, bk, paths, by_path, peaks):
     for B in (1, 8, 32):
         core, x = core_input(vknet, vxcs[B], name)
         fn = be.route(core.tile_ids.shape[1])
-        total = {}
-        for part, (a, b) in zip(("head", "tail"), outside_period(core)):
-            res = measure_operand(be, bk, fn, {}, core.tiles, core.tile_ids[a:b],
-                                  core.col_blk[a:b], x, "VGG16 orth %s core %s rows [%d, %d), "
-                                  "B=%d" % (name, part, a, b, B), peaks)
-            for k, v in res.items():
-                if isinstance(v, float) and k != "max_abs_err":
-                    total[k] = total.get(k, 0.0) + v
+        parts = [measure_operand(be, bk, fn, {}, core.tiles, core.tile_ids[a:b],
+                                 core.col_blk[a:b], x, "VGG16 orth %s core %s rows [%d, %d), "
+                                 "B=%d" % (name, part, a, b, B), peaks)
+                 for part, (a, b) in zip(("head", "tail"), outside_period(core))]
         log("[kernels] %s at VGG16 orth %s core head + tail rows, B=%d: %s"
-            % (fn.__name__, name, B, json.dumps(total)))
+            % (fn.__name__, name, B, json.dumps(summed(parts))))
     head_tail_staged(be, bk, vknet, vxcs[1], name, peaks)
     if "vgg-stochastic" in paths:
         stochastic_kernel_rows(be, bk, *paths["vgg-stochastic"], peaks)
+    if "vgg-bf16" in paths:
+        bf16 = bf16_kernel_rows(kt, be, bk, paths, by_path[BF16_PATH], peaks)
+        for n in ("periodic_block_ell_matvec", "block_ell_matmul_xresd"):
+            rows[n]["bf16"] = [dict(r, name=n, route="cuda", source=rows[n]["source"],
+                                    replaces=rows[n]["replaces"]) for r in bf16[n]]
     return [rows[n] for n in be.ENTRIES]
+
+
+BF16_PATH = "slice 10 (VGG orth bf16)"
+
+
+def summed(parts):
+    """Head and tail rows measured apart, as one row: times and bounds
+    added, the worst error, the bound's kind where the parts agree."""
+    out = {}
+    for r in parts:
+        for k, v in r.items():
+            if k == "max_abs_err":
+                out[k] = max(out.get(k, 0.0), v)
+            elif isinstance(v, float):
+                out[k] = out.get(k, 0.0) + v
+            elif v is None and k.endswith("_ms"):
+                out[k] = None
+            elif k not in out:
+                out[k] = v
+            elif out[k] != v:
+                out[k] = "mixed"
+    return out
+
+
+def bf16_kernel_rows(kt, block_ell, bk, paths, launches, peaks):
+    """The bf16 (tensor-core) rows of the slot walk and the periodic kernel:
+    the periodic kernel at the orth VGG-16's conv1_2 core and the slot walk
+    on that core's head and tail rows at B = 1, 8, 32, fed as the bf16
+    forward feeds them; the slot walk at AllConvNet conv1 with its f32 tiles
+    cast to bf16 at B = 64 and 1024 (the cast is first held equal to a
+    TILE_DTYPE='bfloat16' conversion's conv1 core).  Each: kernel, plain and
+    library ms, the bound at the bf16 rate and 2 bytes a tile element, and
+    the entry's launches on the bf16 path.  Returns {entry: [rows]}."""
+    import torch
+    be = block_ell
+    knet, xcs, cores = paths["vgg-bf16"]
+    name = max((n for n, c, _ in cores if c.period is not None),
+               key=lambda n: periodic_work(next(c for m, c, _ in cores if m == n))["slots"])
+    out = {"periodic_block_ell_matvec": [], "block_ell_matmul_xresd": []}
+    for B in (1, 8, 32):
+        r = measure_periodic(be, knet, xcs[B], name, peaks, label="VGG16 orth bf16")
+        out["periodic_block_ell_matvec"].append(dict(
+            r, where="VGG16 orth bf16 %s core, B=%d" % (name, B),
+            launches=launches["periodic_block_ell_matvec"]))
+    for B in (1, 8, 32):
+        core, x = core_input(knet, xcs[B], name)
+        fn = be.route(core.tile_ids.shape[1])
+        parts = [measure_operand(be, bk, fn, {}, core.tiles, core.tile_ids[a:b],
+                                 core.col_blk[a:b], x, "VGG16 orth bf16 %s core %s rows "
+                                 "[%d, %d), B=%d" % (name, part, a, b, B), peaks)
+                 for part, (a, b) in zip(("head", "tail"), outside_period(core))]
+        out[fn.__name__].append(dict(summed(parts), launches=launches[fn.__name__],
+                                     where="VGG16 orth bf16 %s core head + tail rows, B=%d"
+                                     % (name, B)))
+    # AllConvNet conv1: the f32 core's tiles cast to bf16 equal a bf16 conversion's
+    aknet, axcs = paths["allconv"]
+    core, _ = core_input(aknet, axcs[64], "conv1")
+    tiles = core.tiles.to(torch.bfloat16)
+    with global_keys(kt, TILE_DTYPE="bfloat16"):
+        _, _, knet16 = allconv_keynet(kt)
+    core16, _ = core_input(knet16, axcs[64], "conv1")
+    same = (core16.tiles.dtype == torch.bfloat16 and torch.equal(core16.tiles, tiles)
+            and torch.equal(core16.tile_ids, core.tile_ids)
+            and torch.equal(core16.col_blk, core.col_blk))
+    log("[kernels] AllConvNet conv1 core: f32 tiles cast to bf16 == TILE_DTYPE='bfloat16' "
+        "packing (tiles, tile_ids, col_blk): %s" % same)
+    if not same:
+        raise AssertionError("AllConvNet conv1: the cast tiles differ from bf16 packing")
+    del knet16, core16
+    for B in (64, 1024):
+        _, x = core_input(aknet, axcs[B], "conv1")
+        r = measure_operand(be, bk, be.block_ell_matmul_xresd, {"depth": 4}, tiles,
+                            core.tile_ids, core.col_blk, x,
+                            "AllConvNet conv1 core, bf16 tiles, B=%d" % B, peaks)
+        out["block_ell_matmul_xresd"].append(dict(
+            r, where="AllConvNet conv1 core, bf16 tiles, B=%d" % B,
+            launches=launches["block_ell_matmul_xresd"]))
+    for n, rs in out.items():
+        log("[kernels] %s bf16 (tensor cores): %s" % (n, json.dumps(rs)))
+    return out
 
 
 def head_tail_staged(block_ell, bk, knet, xc, layer, peaks):
@@ -999,31 +1211,33 @@ def periodic_work(core, B=1):
 
 
 def bmm_library_ms(core, x):
-    """One torch.bmm over the pre-gathered x blocks and the expanded period
-    tiles, batch P, (R·B, KB·TN) x (KB·TN, TM) — the yardstick, timed
-    without its gathers; the port never calls it.  None when the gathered
-    operands would not fit the card beside the keyed net."""
+    """One torch.bmm in the tile dtype over the pre-gathered x blocks and the
+    expanded period tiles, batch P, (R·B, KB·TN) x (KB·TN, TM) — the
+    yardstick, timed without its gathers; the port never calls it.  None
+    when the gathered operands would not fit the card beside the keyed
+    net."""
     import torch
     s, P, R = core.period
     KB = core.tile_ids.shape[1]
     TM, TN = core.tileshape
     B = x.shape[0]
-    need = 4 * P * (R * B * KB * TN + KB * TN * TM + R * B * TM)
+    dt = core.tiles.dtype
+    need = core.tiles.element_size() * P * (R * B * KB * TN + KB * TN * TM + R * B * TM)
     free = torch.cuda.mem_get_info()[0]
     if need > 0.8 * free:
         log("[kernels] torch.bmm yardstick at B=%d skipped: its gathered operands "
             "take %.1f GB, %.1f GB free" % (B, need / 1e9, free / 1e9))
         return None, None
-    xb = x.float().reshape(B, -1, TN)
+    xb = x.to(dt).reshape(B, -1, TN)
     cols = core.col_blk[s:s + P * R].long().reshape(R, P, KB).permute(1, 0, 2)
     b = torch.arange(B, device=x.device)
     Xg = xb[b[None, None, :, None], cols[:, :, None, :]]          # (P, R, B, KB, TN)
     Xg = Xg.reshape(P, R * B, KB * TN)
-    Tg = core.tiles[core.tile_ids[s:s + P].long()].float()         # (P, KB, TM, TN)
+    Tg = core.tiles[core.tile_ids[s:s + P].long()]                 # (P, KB, TM, TN)
     Tg = Tg.permute(0, 1, 3, 2).reshape(P, KB * TN, TM)
     y = torch.bmm(Xg, Tg)                                          # (P, R*B, TM)
     ms, _ = cuda_ms(lambda: torch.bmm(Xg, Tg), reps=5)
-    y = y.reshape(P, R, B, TM).permute(2, 1, 0, 3).reshape(B, -1)
+    y = y.reshape(P, R, B, TM).permute(2, 1, 0, 3).reshape(B, -1).float()
     return ms, y
 
 
@@ -1041,7 +1255,8 @@ def measure_periodic(block_ell, knet, xc, layer, peaks, label="VGG16 orth"):
     torch.cuda.synchronize()
     err = float((y - ref).abs().max())
     where = "%s %s core %s, B=%d" % (label, layer, core.period, B)
-    check(err, float(ref.abs().max()), TOL_F32, "periodic_block_ell_matvec at " + where)
+    tol = TOL_F32 if core.tiles.dtype == torch.float32 else TOL_BF16
+    check(err, float(ref.abs().max()), tol, "periodic_block_ell_matvec at " + where)
     ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_matvec(*args), reps=10)
     plain_ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_plain(*args), reps=3)
     lib_ms, ylib = bmm_library_ms(core, x)
@@ -1353,6 +1568,17 @@ STOCH_ROUTES = {
     "conv5_1": _SPLIT_KRON, "conv5_2": _KRON, "conv5_3": _KRON,
     "pool5_3": "ChannelBroadcastOp[DenseOp]",
     "fc6": "DenseOp", "fc7": "DenseOp", "fc8": "DenseOp"}
+# The same recipe with TILE_DTYPE='bfloat16' (run_vgg_stochastic_224.py
+# --tile-dtype bfloat16).  Two gates read the tile itemsize, and neither
+# changes a layer's route at 224: the grouped-row plan's slot bytes
+# (ROWGROUP_MIN_SLOT_BYTES) and _grouped_wins decide how a core applies, not
+# the layer's links (conv1_1's and conv2_1's cores keep the grouped-row
+# einsum at B <= 396 and 520 x itemsize: B = 1, 8, 32 in both dtypes), and
+# the periodic expansion (PERIODIC_EXPAND_BYTES) is not kept beside
+# kernel-routed tiles on the card.  So the table is STOCH_ROUTES; each core's
+# apply at B = 1, 8, 32 is printed beside it.  tests/test_torch_bf16.py holds
+# the routes and these gates equal to keynet_tpu's in bf16 at 3x56x56.
+STOCH_ROUTES_BF16 = dict(STOCH_ROUTES)
 
 
 def route_kinds(op):
@@ -1405,16 +1631,18 @@ def device_memory(tag, label, sensor, knet, before):
     return res
 
 
-def stochastic_keynet(kt):
-    """VGG16(seed=5) keyed with the stochastic recipe at 3x224x224: (source
-    net, keyed sensor, keyed net, conversion seconds)."""
+def stochastic_keynet(kt, tile_dtype="float32"):
+    """VGG16(seed=5) keyed with the stochastic recipe at 3x224x224, tiles in
+    ``tile_dtype``: (source net, keyed sensor, keyed net, conversion
+    seconds)."""
     net = kt.models.VGG16(seed=5)
     t = time.perf_counter()
-    sensor, knet = kt.Keynet((3, 224, 224), net, device="cuda", **STOCH_RECIPE)
+    with global_keys(kt, TILE_DTYPE=tile_dtype):
+        sensor, knet = kt.Keynet((3, 224, 224), net, device="cuda", **STOCH_RECIPE)
     return net, sensor, knet, time.perf_counter() - t
 
 
-def phase_vgg_stochastic(kt, block_ell):
+def phase_vgg_stochastic(kt, block_ell, bf16=False):
     """Slice 7, the stochastic VGG-16 at 3x224x224 (f32 tiles): conversion
     seconds (total and per layer), peak host RSS, nnz, device_bytes() beside
     torch.cuda.memory_allocated(); every layer's route held against
@@ -1424,33 +1652,39 @@ def phase_vgg_stochastic(kt, block_ell):
     B=1, 8 and 32 with the counts set to 0 just before and read just after
     (every entry the cores route to must have launched, and one at least);
     per-link ms at B=1 and 32 and a trace of the B=1 forward.  A route that
-    differs from the table raises at the end of the phase."""
+    differs from the table raises at the end of the phase.  ``bf16``: slice
+    10's --only vgg-stochastic-bf16, the same with TILE_DTYPE='bfloat16',
+    keyed vs source within TOL_SERVE_BF16, routes against
+    STOCH_ROUTES_BF16, no trace."""
     import gc
     import resource
     import torch
     gc.collect()
     rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
     alloc0 = torch.cuda.memory_allocated()
-    net, sensor, knet, secs = stochastic_keynet(kt)
+    tag, label = ("vgg-stochastic-bf16", "VGG16 stochastic bf16") if bf16 \
+        else ("vgg-stochastic", "VGG16 stochastic")
+    table = STOCH_ROUTES_BF16 if bf16 else STOCH_ROUTES
+    net, sensor, knet, secs = stochastic_keynet(kt, "bfloat16" if bf16 else "float32")
     rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
     layer_s = {k: round(v, 2) for k, v in knet.layer_seconds.items()}
-    log("[vgg-stochastic] conversion: %.1f s (host); per layer %s; sensor and the rest "
+    log("[%s] conversion: %.1f s (host); per layer %s; sensor and the rest "
         "%.1f s; peak host RSS %.2f GiB (%.2f GiB before); nnz %d"
-        % (secs, json.dumps(layer_s),
+        % (tag, secs, json.dumps(layer_s),
            secs - sum(knet.layer_seconds.values()), rss1, rss0, knet.num_parameters()))
-    device_memory("vgg-stochastic", "VGG16 stochastic", sensor, knet, alloc0)
-    log_routes("vgg-stochastic", sensor, knet)
+    device_memory(tag, label, sensor, knet, alloc0)
+    log_routes(tag, sensor, knet)
     wrong = {}
     for name, op in [("sensor", sensor.op())] + [(k, l.op()) for k, l in knet.layers().items()
                                                  if l != "relu"]:
-        if route_kinds(op) != STOCH_ROUTES[name]:
-            wrong[name] = (route_kinds(op), STOCH_ROUTES[name])
+        if route_kinds(op) != table[name]:
+            wrong[name] = (route_kinds(op), table[name])
     cores = block_ell_cores(sensor, knet)
     for name, c, per_image in cores:
-        log("[vgg-stochastic] core %s: %s" % (name, json.dumps(dict(
+        log("[%s] core %s: %s" % (tag, name, json.dumps(dict(
             shape=list(c.shape), rows=int(c.tile_ids.shape[0]), KB=int(c.tile_ids.shape[1]),
             unique_tiles=int(c.tiles.shape[0]), period=c.period,
-            nonzero_slots=int((c.tile_ids > 0).sum()),
+            nonzero_slots=int((c.tile_ids > 0).sum()), tiles=str(c.tiles.dtype),
             grouped_row_plan=None if c._rgroups is None else dict(
                 buckets=len(c._rgroup_meta), patterns=sum(G for _, G in c._rgroup_meta),
                 tile_gather_bytes=sum(G for _, G in c._rgroup_meta) * c.tile_ids.shape[1]
@@ -1460,12 +1694,12 @@ def phase_vgg_stochastic(kt, block_ell):
     block_ell.reset_launches()
     xcs, forwards = {}, {}
     for B in (1, 8, 32):
-        xcs[B], forwards[B] = keyed_vs_source(kt, net, sensor, knet, B, 400 + B,
-                                              "VGG16 stochastic", reps=5 if B < 32 else 3,
-                                              tag="vgg-stochastic")
+        xcs[B], forwards[B] = keyed_vs_source(kt, net, sensor, knet, B, 400 + B, label,
+                                              reps=5 if B < 32 else 3, tag=tag,
+                                              tol=TOL_SERVE_BF16 if bf16 else TOL_F32)
     torch.cuda.synchronize()
     launches = dict(block_ell.LAUNCHES)
-    log("[vgg-stochastic] launches: %s" % json.dumps(launches))
+    log("[%s] launches: %s" % (tag, json.dumps(launches)))
     transient = {}
     for B in (1, 32):
         base = torch.cuda.memory_allocated()
@@ -1473,25 +1707,26 @@ def phase_vgg_stochastic(kt, block_ell):
         knet.forward(xcs[B])
         torch.cuda.synchronize()
         transient["B=%d" % B] = torch.cuda.max_memory_allocated() - base
-    log("[vgg-stochastic] device memory a forward takes beyond what the net holds (its "
+    log("[%s] device memory a forward takes beyond what the net holds (its "
         "activations and transients, the grouped-row tile gathers among them): %s"
-        % json.dumps(transient))
+        % (tag, json.dumps(transient)))
     routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for _, c, m in cores
                                   for B in forwards)))
-    log("[vgg-stochastic] entries routed by the driven Block-ELL cores: %s" % routed)
+    log("[%s] entries routed by the driven Block-ELL cores: %s" % (tag, routed))
     if not routed:
-        raise AssertionError("no Block-ELL core of the stochastic VGG routes to a kernel")
+        raise AssertionError("no Block-ELL core of the %s routes to a kernel" % label)
     for name in routed:
         if launches[name] <= 0:
-            raise AssertionError("%s was not launched on the stochastic VGG path" % name)
-    never_routed(launches, "the stochastic VGG path")
+            raise AssertionError("%s was not launched on the %s path" % (name, label))
+    never_routed(launches, "the %s path" % label)
     for B in (1, 32):
-        layer_breakdown("VGG16 stochastic", knet, xcs[B])
-    trace_forward(kt, knet, xcs[1], "vgg_stochastic_forward_B1")
+        layer_breakdown(label, knet, xcs[B])
+    if not bf16:
+        trace_forward(kt, knet, xcs[1], "vgg_stochastic_forward_B1")
     if wrong:
-        raise AssertionError("[vgg-stochastic] routes differ from keynet_tpu's: %s"
-                             % json.dumps(wrong))
-    return {"vgg-stochastic": (knet, xcs, cores)}, launches
+        raise AssertionError("[%s] routes differ from keynet_tpu's: %s"
+                             % (tag, json.dumps(wrong)))
+    return {tag: (knet, xcs, cores)}, launches
 
 
 def core_apply(block_ell, core, rows):
@@ -1509,7 +1744,7 @@ def core_apply(block_ell, core, rows):
     return "periodic einsum"
 
 
-def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks):
+def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 stochastic"):
     """The kernel at the largest Block-ELL core of the stochastic VGG that
     routes to one (by non-zero slots, a conv's core), at B=1, 8 and 32:
     kernel, plain and library times and the bound, as phase_kernels' rows."""
@@ -1524,15 +1759,14 @@ def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks):
     for B in (1, 8, 32):
         entries = entries_of(block_ell, core, B)
         if "periodic_block_ell_matvec" in entries:
-            out[B] = measure_periodic(block_ell, knet, xcs[B], name, peaks,
-                                      label="VGG16 stochastic")
+            out[B] = measure_periodic(block_ell, knet, xcs[B], name, peaks, label=label)
             continue
         c, x = core_input(knet, xcs[B], name)
         fn = block_ell.route(c.tile_ids.shape[1])
         out[B] = measure_operand(block_ell, bk, fn, {}, c.tiles, c.tile_ids, c.col_blk, x,
-                                 "VGG16 stochastic %s core, B=%d" % (name, B), peaks)
-    log("[kernels] VGG16 stochastic: the largest kernel-routed core is %s's %s, KB %d"
-        % (name, tuple(core.tile_ids.shape), core.tile_ids.shape[1]))
+                                 "%s %s core, B=%d" % (label, name, B), peaks)
+    log("[kernels] %s: the largest kernel-routed core is %s's %s, KB %d"
+        % (label, name, tuple(core.tile_ids.shape), core.tile_ids.shape[1]))
     return name, out
 
 
@@ -1543,31 +1777,31 @@ SHARED = "4 ranks sharing one card over gloo, not a multi-card time"
 
 
 class fed_operands:
-    """While active, records what the forward feeds the Block-ELL kernels
-    of the TpShardedBlockEllOps ``tps`` (through their local BlockSparseOp):
-    (the op, row-blocks [a, b) of the slot walk or None for the periodic
-    mid-section, the padded x), copied as the op hands them on."""
+    """While active, records what a forward feeds the Block-ELL kernels of
+    the BlockSparseOp cores of ``owned`` ((owner, core) pairs: a
+    TpShardedBlockEllOp and its local core, or a layer name and its core):
+    (owner, core, row-blocks [a, b) of the slot walk or None for the
+    periodic mid-section, the padded x), copied as the core hands them on."""
 
-    def __init__(self, tps):
-        self.tps, self.calls = list(tps), []
+    def __init__(self, owned):
+        self.owned, self.calls = list(owned), []
 
     def __enter__(self):
-        for tp in self.tps:
-            core = tp.local
+        for owner, core in self.owned:
 
-            def rows(x, a, b, tp=tp, apply=core._apply_rows):
-                self.calls.append((tp, (a, b), x.clone()))
+            def rows(x, a, b, owner=owner, core=core, apply=core._apply_rows):
+                self.calls.append((owner, core, (a, b), x.clone()))
                 return apply(x, a, b)
 
-            def mid(x, tp=tp, apply=core._apply_periodic_mid):
-                self.calls.append((tp, None, x.clone()))
+            def mid(x, owner=owner, core=core, apply=core._apply_periodic_mid):
+                self.calls.append((owner, core, None, x.clone()))
                 return apply(x)
             core._apply_rows, core._apply_periodic_mid = rows, mid
         return self
 
     def __exit__(self, *exc):
-        for tp in self.tps:
-            del tp.local._apply_rows, tp.local._apply_periodic_mid
+        for _, core in self.owned:
+            del core._apply_rows, core._apply_periodic_mid
 
 
 def hold_fed(block_ell, calls, what):
@@ -1578,8 +1812,7 @@ def hold_fed(block_ell, calls, what):
     import torch
     from keynet_tpu_torch.ops.operators import block_ell_route
     lines = []
-    for tp, rows, x in calls:
-        core = tp.local
+    for owner, core, rows, x in calls:
         TM, TN = core.tileshape
         if block_ell_route(x.device.type, TM, TN) != "kernel":
             continue
@@ -1595,9 +1828,13 @@ def hold_fed(block_ell, calls, what):
         sync(x.device)
         err, scale = float((y - want).abs().max()), float(want.abs().max())
         tol = TOL_F32 if core.tiles.dtype == torch.float32 else TOL_BF16
-        check(err, scale, tol, "[parallel] %s: %s vs its plain version" % (what, fn.__name__))
-        zero = "a zero tile put first, ids shifted" if tp.zero_tile_added \
-            else "local id 0 the zero tile"
+        check(err, scale, tol, "%s%s: %s vs its plain version"
+              % ("" if isinstance(owner, str) else "[parallel] ", what, fn.__name__))
+        if isinstance(owner, str):
+            zero = "%s, %s tiles" % (owner, str(core.tiles.dtype).replace("torch.", ""))
+        else:
+            zero = "a zero tile put first, ids shifted" if owner.zero_tile_added \
+                else "local id 0 the zero tile"
         span = "periodic" if rows is None else "%d-%d" % rows
         lines.append((fn.__name__, "%s: %s at the forward's operand (B=%d, row-blocks %s of "
                       "%d, KB %d, %d tiles, %s), max|diff| %.3g vs the plain version "
@@ -1644,7 +1881,7 @@ def parallel_rank(rank, world, device="cuda"):
         launches are not counted)."""
         sync(dev)
         before = dict(block_ell.LAUNCHES)
-        with fed_operands(tps) as rec:
+        with fed_operands((tp, tp.local) for tp in tps) as rec:
             out = fn(*args)
         sync(dev)
         for n in launches:
@@ -2150,14 +2387,39 @@ class _LegacyLib:
         setattr(self, name + "_error_string", getattr(lib, name + "_error_string"))
 
 
+class _FmaPlanLib:
+    """A build whose bf16 slot walk and periodic kernel ran on the FMA core
+    (before block_ell_wgmma.cuh): its bf16 launches get the shared memory
+    its plan asked for, the f32 plan's at the same row tile (the same
+    128-byte panels, 16 bytes of padding a row), not the tensor cores'."""
+
+    def __init__(self, block_ell, name, lib):
+        import torch
+        fn_name = block_ell._LAUNCH_FN[name][0]
+        fn = getattr(lib, fn_name)
+        kernel = "periodic" if name == "periodic_block_ell" else "slot_walk"
+
+        def launch(*a):
+            *a, bf16, BT, smem, stream = a
+            if bf16:
+                smem = block_ell.launch_plan(BT, 128, 128, 128, torch.float32, kernel)["smem"]
+            return fn(*a, bf16, BT, smem, stream)
+        setattr(self, fn_name, launch)
+        setattr(self, name + "_error_string", getattr(lib, name + "_error_string"))
+
+
 def build_version(block_ell, src_dir):
     """src_dir's four kernels, built and loaded: {library name: library};
-    a source with an older launch is wrapped."""
+    a source with an older launch is wrapped, and so is a slot walk or
+    periodic kernel whose bf16 ran on the FMA core."""
     libs = block_ell.build(verbose=True, src_dir=src_dir, names=list(AB_LIBS))
     for name, (marker, n_int) in AB_LIBS.items():
         with open(os.path.join(src_dir, name + ".cu")) as f:
-            if marker not in f.read():
-                libs[name] = _LegacyLib(block_ell, name, libs[name], n_int)
+            src = f.read()
+        if marker not in src:
+            libs[name] = _LegacyLib(block_ell, name, libs[name], n_int)
+        elif name in TENSOR_CORE_LIBS and "block_ell_wgmma.cuh" not in src:
+            libs[name] = _FmaPlanLib(block_ell, name, libs[name])
     return libs
 
 
@@ -2203,6 +2465,32 @@ def phase_ab(kt, block_ell, versions, rounds):
         items["slot walk AllConvNet conv1 B=%d" % B] = (
             lambda c=core, x=x: block_ell.block_ell_matmul_xresd(
                 x, c.tiles, c.tile_ids, c.col_blk, c.tile_ids.shape[0] * c.tileshape[0]))
+    # bf16 tiles (the f32 tiles cast: the same values and ids as packing in
+    # bf16): the tensor-core slot walk and periodic kernel against a build
+    # whose bf16 ran on the FMA core, and xres and grid, whose bf16 did not move
+    import torch
+    bf = torch.bfloat16
+    for B in (1, 8, 32):
+        core, x = core_input(vknet, rng_x["vgg", B], "conv1_2")
+        s, P, R = core.period
+        t16 = core.tiles.to(bf)
+        items["bf16 periodic conv1_2 B=%d" % B] = (
+            lambda a=(x, t16, core.tile_ids, core.col_blk, s, P, R):
+            block_ell.periodic_block_ell_matvec(*a))
+        for a, b in outside_period(core):
+            items["bf16 slot walk conv1_2 rows [%d, %d) B=%d" % (a, b, B)] = (
+                lambda c=core, t=t16, x=x, a=a, b=b: block_ell.block_ell_matmul_xresd(
+                    x, t, c.tile_ids[a:b], c.col_blk[a:b], (b - a) * c.tileshape[0]))
+    for B in (64, 1024):
+        core, x = core_input(aknet, rng_x["allconv", B], "conv1")
+        fns = [("slot walk", block_ell.block_ell_matmul_xresd)]
+        if B == 64:
+            fns += [("xres", block_ell.block_ell_matmul_xres),
+                    ("grid", block_ell.block_ell_matmul_grid)]
+        for short, fn in fns:
+            items["bf16 %s AllConvNet conv1 B=%d" % (short, B)] = (
+                lambda f=fn, c=core, t=core.tiles.to(bf), x=x: f(
+                    x, t, c.tile_ids, c.col_blk, c.tile_ids.shape[0] * c.tileshape[0]))
     from keynet_tpu_torch import bench_kernels as bk
     tiles, ids, cols, rng = bk.depth_operand("cuda")
     xd = torch.from_numpy(rng.normal(size=(8, ids.shape[0] * tiles.shape[2]))
@@ -2277,8 +2565,8 @@ def main(argv=None):
     ap.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--tree", metavar="DIR", default=ROOT)
     ap.add_argument("--against", metavar="FILE")
-    ap.add_argument("--only", choices=["vgg-stochastic", "parallel", "challenge", "programs",
-                                       "serve-vgg"])
+    ap.add_argument("--only", choices=["vgg-stochastic", "vgg-stochastic-bf16", "parallel",
+                                       "challenge", "programs", "serve-vgg"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2290,13 +2578,15 @@ def main(argv=None):
     rows = None
     if args.outputs:
         phase_outputs(kt, args.outputs, args.against)
-    elif args.only == "vgg-stochastic":
+    elif args.only in ("vgg-stochastic", "vgg-stochastic-bf16"):
         from keynet_tpu_torch import bench_kernels as bk
         peaks = bk.card_peaks(name)[1]
-        paths, launches = timed("slice 7 (VGG stochastic)", phase_vgg_stochastic, kt,
-                                block_ell)
-        log("[main] launches by path: %s" % json.dumps({"slice 7 (VGG stochastic)": launches}))
-        timed("kernels", stochastic_kernel_rows, block_ell, bk, *paths["vgg-stochastic"], peaks)
+        bf16 = args.only.endswith("bf16")
+        what = "slice 10 (VGG stochastic bf16)" if bf16 else "slice 7 (VGG stochastic)"
+        paths, launches = timed(what, phase_vgg_stochastic, kt, block_ell, bf16)
+        log("[main] launches by path: %s" % json.dumps({what: launches}))
+        timed("kernels", stochastic_kernel_rows, block_ell, bk, *paths[args.only], peaks,
+              "VGG16 stochastic bf16" if bf16 else "VGG16 stochastic")
     elif args.only == "parallel":
         log("[main] launches by path: %s" % json.dumps(
             {"slice 8 (parallel)": timed("slice 8 (parallel)", phase_parallel, kt, block_ell)}))
@@ -2323,9 +2613,12 @@ def main(argv=None):
         paths, launches = timed("slice 1", phase_main_allconv, kt, block_ell)
         vgg_paths, vgg_launches = timed("slice 2 (VGG orth)", phase_main_vgg, kt, block_ell)
         paths.update(vgg_paths)
+        bf16_paths, bf16_launches = timed(BF16_PATH, phase_main_vgg, kt, block_ell, True,
+                                          paths["vgg memory"])
+        paths.update(bf16_paths)
         bench_launches = timed("slice 3 (bench)", phase_bench, block_ell, bk)
         by_path = {"slice 1": launches, "slice 2 (VGG)": vgg_launches,
-                   "slice 3 (bench)": bench_launches,
+                   BF16_PATH: bf16_launches, "slice 3 (bench)": bench_launches,
                    "slice 6 (train)": timed("slice 6 (train)", phase_train, kt, block_ell),
                    "slice 6 (tiled)": timed("slice 6 (tiled)", phase_tiled, kt, block_ell),
                    "slice 6 (VGG identity)": timed("slice 6 (VGG identity)",
@@ -2339,7 +2632,7 @@ def main(argv=None):
         by_path["slice 9 (programs)"] = timed("slice 9 (programs)", phase_programs, kt,
                                               block_ell, paths.pop("allconv keynet"))
         log("[main] launches by path: %s" % json.dumps(by_path))
-        rows = timed("kernels", phase_kernels, block_ell, bk, paths, by_path, peaks)
+        rows = timed("kernels", phase_kernels, kt, block_ell, bk, paths, by_path, peaks)
     log("[done] %.1f s" % (time.perf_counter() - t0))
     print(smi)
     if rows is not None:

@@ -32,8 +32,18 @@
 // A block walks its row-block's KB slots and skips a slot whose tile id is 0
 // (its tile is zeros).  The output is written once, with no atomics, so
 // results are run-to-run deterministic.
+//
+// bf16 tiles.  The Pallas kernels run a bf16 x bf16 -> f32 dot on the
+// matrix unit; so does the bf16 instantiation here, on the tensor cores
+// (block_ell_wgmma.cuh): the same walk, grid and row tile, its panels staged
+// by cp.async at 128-byte-swizzled addresses and multiplied by wgmma, two
+// warpgroups a block.  Its ceiling is 989 TFLOP/s (H100 SXM data sheet)
+// where the FMA pipes give 67, so its bound is 15x lower wherever operations
+// bound the FMA version (AllConvNet conv1 at B = 1024: 3.445 ms of f32
+// FMAs, 0.233 ms at the bf16 rate).
 
 #include "block_ell_core.cuh"
+#include "block_ell_wgmma.cuh"
 
 namespace {
 
@@ -94,6 +104,59 @@ __global__ void __launch_bounds__(C::NT, 1) slot_walk_kernel(
   });
 }
 
+// The bf16 instantiation: the same walk on tensor cores (block_ell_wgmma.cuh).
+template <class C>
+__global__ void __launch_bounds__(C::NT, 2) slot_walk_wgmma(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ tiles,
+    const int* __restrict__ tile_ids, const int* __restrict__ col_blk,
+    float* __restrict__ out, int B, int n_cols, int n_rb, int KB, int TM,
+    int TN, int n_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * C::BT;
+  const int chunk = blockIdx.y;
+  const int per_rb = TM / BM;
+  const int rb = chunk / per_rb;          // row-block
+  const int m0 = (chunk % per_rb) * BM;   // first tile row of this chunk
+  const int c0 = chunk * BM;              // first output column
+
+  float acc[C::ACC];
+#pragma unroll
+  for (int i = 0; i < C::ACC; ++i) acc[i] = 0.f;
+
+  if (rb < n_rb) {
+    const int* ids = tile_ids + (size_t)rb * KB;
+    const int* cbs = col_blk + (size_t)rb * KB;
+    const int per_slot = TN / C::BK;
+    int nz = 0;
+    for (int k = 0; k < KB; ++k) nz += ids[k] > 0;
+    const int valid = min(B - b0, C::BT);
+    const __nv_bfloat16* xrow = x + (size_t)b0 * n_cols;
+
+    // producer cursor: slot pk (non-zero), column chunk pc of the next step
+    int pk = 0, pc = 0;
+    while (pk < KB && ids[pk] <= 0) ++pk;
+    bw::run_ring<C>(ring, nz * per_slot, tid / 128, acc, [&](unsigned char* st) {
+      const int col = pc * C::BK;
+      bw::stage_tile<C>(st + C::X_BYTES, tiles + ((size_t)ids[pk] * TM + m0) * TN + col,
+                        (size_t)TN, tid);
+      const __nv_bfloat16* xs = xrow + (size_t)cbs[pk] * TN + col;
+      bw::stage_x<C>(st, xs, [&](int row) -> long long {
+        return row < valid ? (long long)row * n_cols : -1;
+      }, tid);
+      if (++pc == per_slot) {
+        pc = 0;
+        do ++pk; while (pk < KB && ids[pk] <= 0);
+      }
+    });
+  }
+  bw::store<C>(acc, tid, n_out - c0, [&](int row) -> float* {
+    return b0 + row < B ? out + (size_t)(b0 + row) * n_out + c0 : nullptr;
+  });
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* tiles, const int* ids,
                    const int* cols, float* out, int B, int n_cols, int n_rb,
@@ -113,6 +176,23 @@ cudaError_t launch(const void* x, const void* tiles, const int* ids,
   });
 }
 
+cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const int* cols,
+                         float* out, int B, int n_cols, int n_rb, int KB, int TM, int TN,
+                         int n_out, int BT, size_t bytes, cudaStream_t stream) {
+  return bw::with_tile(BT, [&](auto c) {
+    using C = decltype(c);
+    if (bytes < C::SMEM) return cudaErrorInvalidValue;
+    static size_t allowed = 48 * 1024;
+    cudaError_t err = allow_smem_once(slot_walk_wgmma<C>, bytes, allowed);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + C::BT - 1) / C::BT, (n_out + BM - 1) / BM);
+    slot_walk_wgmma<C><<<grid, C::NT, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(tiles), ids,
+        cols, out, B, n_cols, n_rb, KB, TM, TN, n_out);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -123,7 +203,8 @@ extern "C" {
 // out: (B, n_out) f32.  TM and TN are multiples of 128; all arrays
 // contiguous.  BT (8, 16, 32, 64 or 128) is the row tile and smem the
 // dynamic shared memory of a block, as ops/block_ell.launch_plan chooses
-// them; fewer bytes than BT's layout needs are refused.
+// them; fewer bytes than BT's layout needs are refused.  f32 tiles run the
+// FMA core, bf16 tiles the tensor cores.
 int block_ell_slot_walk(const void* x, const void* tiles, const void* tile_ids,
                         const void* col_blk, void* out, int B, int n_cols,
                         int n_rb, int KB, int TM, int TN, int n_out, int bf16,
@@ -135,8 +216,7 @@ int block_ell_slot_walk(const void* x, const void* tiles, const void* tile_ids,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16
-      ? launch<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, BT,
-                              smem, s)
+      ? launch_wgmma(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, BT, smem, s)
       : launch<float>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, BT, smem, s);
   return static_cast<int>(err);
 }

@@ -35,8 +35,17 @@
 // next to each other on grid.x, so the tiles they share come from L2.  Each
 // output is written once, with no atomics: results are run-to-run
 // deterministic.
+//
+// bf16 tiles run on the tensor cores, as the Pallas kernel's bf16 dot runs
+// on the matrix unit (block_ell_wgmma.cuh): the same walk, grid, row tile
+// and offset buffers, the panels staged at 128-byte-swizzled addresses and
+// multiplied by wgmma.  At conv1_2 and B = 32 the operations bound falls from
+// 7.04 ms of f32 FMAs to 0.48 ms at 989 TFLOP/s, beside 0.2 ms for the bytes
+// it must move; what it stages is more, since every block reads its slot's
+// tile panel and gathers its x rows again (L2 serves most of it).
 
 #include "block_ell_core.cuh"
+#include "block_ell_wgmma.cuh"
 
 namespace {
 
@@ -132,6 +141,81 @@ __global__ void __launch_bounds__(C::NT, 1) periodic_kernel(
   });
 }
 
+// The bf16 instantiation: the same walk on tensor cores (block_ell_wgmma.cuh);
+// the x offsets sit before the 1024-byte-aligned ring.
+template <class C>
+__global__ void __launch_bounds__(C::NT, 2) periodic_wgmma(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ tiles,
+    const int* __restrict__ tile_ids, const int* __restrict__ col_blk,
+    float* __restrict__ out, int B, int n_cols, int KB, int TM, int TN,
+    int s, int P, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* xoff = reinterpret_cast<long long*>(smem_raw);  // [2][BT], -1 = none
+  unsigned char* ring = align1024(smem_raw + xoff_bytes<C>());
+
+  const int tid = threadIdx.x;
+  const long long q0 = (long long)blockIdx.x * C::BT;  // first (rep, image) pair
+  const long long n_pairs = (long long)R * B;
+  const int per_row = TM / BM;
+  const int rho = blockIdx.y / per_row;               // period row
+  const int m0 = (blockIdx.y % per_row) * BM;         // first tile row of the chunk
+
+  long long xrow = -1;
+  const int* cbrow = col_blk;
+  if (tid < C::BT && q0 + tid < n_pairs) {
+    const long long q = q0 + tid;
+    const int j = (int)(q / B), b = (int)(q % B);
+    xrow = (long long)b * n_cols;
+    cbrow = col_blk + ((size_t)s + rho + (size_t)j * P) * KB;
+  }
+  const int* ids = tile_ids + (size_t)(s + rho) * KB;
+  auto next_nz = [&](int k) {
+    do ++k; while (k < KB && ids[k] <= 0);
+    return k;
+  };
+  auto fill = [&](int buf, int k) {  // row offsets of slot k into buffer buf
+    if (tid < C::BT && k < KB)
+      xoff[buf * C::BT + tid] = xrow >= 0 ? xrow + (long long)cbrow[k] * TN : -1;
+  };
+
+  float acc[C::ACC];
+#pragma unroll
+  for (int i = 0; i < C::ACC; ++i) acc[i] = 0.f;
+
+  int nz = 0;
+  for (int k = 0; k < KB; ++k) nz += ids[k] > 0;
+  const int per_slot = TN / C::BK;  // steps a slot: >= STAGES - 1 (below)
+  static_assert(128 / C::BK >= STAGES - 1, "a 128-wide slot has STAGES - 1 steps");
+
+  // the producer cursor and the offsets' double buffer of periodic_kernel
+  int pk = next_nz(-1), pc = 0, n = 0;
+  fill(0, pk);
+  fill(1, next_nz(pk));
+  __syncthreads();
+  bw::run_ring<C>(ring, nz * per_slot, tid / 128, acc, [&](unsigned char* st) {
+    if (pc == 0 && n > 0) fill((n + 1) & 1, next_nz(pk));
+    const int col = pc * C::BK;
+    bw::stage_tile<C>(st + C::X_BYTES, tiles + ((size_t)ids[pk] * TM + m0) * TN + col,
+                      (size_t)TN, tid);
+    const long long* off = xoff + (n & 1) * C::BT;
+    bw::stage_x<C>(st, x + col, [&](int row) { return off[row]; }, tid);
+    if (++pc == per_slot) {
+      pc = 0;
+      pk = next_nz(pk);
+      ++n;
+    }
+  });
+
+  // pair row q (rep j, image b) -> out[b, (j*P + rho)*TM + m0 + c]
+  const size_t n_out = (size_t)P * R * TM;
+  bw::store<C>(acc, tid, BM, [&](int row) -> float* {
+    const long long q = q0 + row;
+    if (q >= n_pairs) return nullptr;
+    const int j = (int)(q / B), b = (int)(q % B);
+    return out + (size_t)b * n_out + ((size_t)j * P + rho) * TM + m0;
+  });
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* tiles, const int* ids,
                    const int* cols, float* out, int B, int n_cols, int KB,
@@ -152,6 +236,24 @@ cudaError_t launch(const void* x, const void* tiles, const int* ids,
   });
 }
 
+cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const int* cols,
+                         float* out, int B, int n_cols, int KB, int TM, int TN, int s, int P,
+                         int R, int BT, size_t bytes, cudaStream_t stream) {
+  return bw::with_tile(BT, [&](auto c) {
+    using C = decltype(c);
+    if (bytes < xoff_bytes<C>() + C::SMEM) return cudaErrorInvalidValue;
+    static size_t allowed = 48 * 1024;
+    cudaError_t err = allow_smem_once(periodic_wgmma<C>, bytes, allowed);
+    if (err != cudaSuccess) return err;
+    const long long n_pairs = (long long)R * B;
+    const dim3 grid((unsigned)((n_pairs + C::BT - 1) / C::BT), (unsigned)(P * (TM / BM)));
+    periodic_wgmma<C><<<grid, C::NT, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(tiles), ids,
+        cols, out, B, n_cols, KB, TM, TN, s, P, R);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -163,7 +265,8 @@ extern "C" {
 // all arrays contiguous.  BT (8, 16, 32, 64 or 128) is the row tile over
 // the R*B (rep, image) pairs and smem the dynamic shared memory of a block,
 // as ops/block_ell.launch_plan chooses them; fewer bytes than BT's layout
-// needs are refused.
+// needs are refused.  f32 tiles run the FMA core, bf16 tiles the tensor
+// cores.
 int periodic_block_ell(const void* x, const void* tiles, const void* tile_ids,
                        const void* col_blk, void* out, int B, int n_cols,
                        int KB, int TM, int TN, int s, int P, int R, int bf16,
@@ -176,8 +279,7 @@ int periodic_block_ell(const void* x, const void* tiles, const void* tile_ids,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16
-      ? launch<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, BT, smem,
-                              st)
+      ? launch_wgmma(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, BT, smem, st)
       : launch<float>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, BT, smem, st);
   return static_cast<int>(err);
 }

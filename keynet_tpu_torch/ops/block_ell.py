@@ -42,8 +42,11 @@ compiled with nvcc at first use into build/kernels/ (one nvcc per source,
 started together) and bound with ctypes.  Every kernel is launched with the
 row tile, shared memory and grid that ``launch_plan`` chooses for it
 (csrc/block_ell_core.cuh); it raises beforehand on a plan the card cannot
-launch.  ``grid_tile_copies`` runs the grid kernel with a device counter of
-the tile copies it issues.
+launch.  With bf16 tiles the slot walk and the periodic kernel multiply on
+the tensor cores (csrc/block_ell_wgmma.cuh: bf16 products, f32 sums, as
+the Pallas dot with bf16 tiles); xres and grid, and every f32 launch, run
+the IEEE f32 FMA core.  ``grid_tile_copies`` runs the grid kernel with a
+device counter of the tile copies it issues.
 """
 
 import ctypes
@@ -82,11 +85,12 @@ _GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
 # The row tiles instantiated in csrc/block_ell_core.cuh -> threads a block
 # (16 column threads x BT/8 row groups x k groups), and the ring's depth.
 TILE_THREADS = {8: 64, 16: 128, 32: 128, 64: 128, 128: 256}
+WGMMA_THREADS = 256  # the bf16 slot walk and periodic kernel: two warpgroups
 GRID_CONSUMERS = 256  # the grid kernel's consumer threads (it runs one block an SM)
 STAGES = 3
 _PANEL_BYTES = 128  # contraction bytes one ring step stages (32 f32, 64 bf16)
 _BM = 128           # output columns a block owns
-_TMA_ALIGN = 1024   # slack to align swizzled TMA destinations
+_TMA_ALIGN = 1024   # slack to align swizzled TMA and wgmma panels
 _SMS = 132          # multiprocessors of the H100 SXM (the grid kernel's G)
 KERNELS = ("slot_walk", "periodic", "xres", "grid")
 _LIBS = {}
@@ -118,10 +122,14 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
       grid k groups (at most 8) up to GRID_CONSUMERS consumer threads plus
       its producer, a warp beside 128 consumers, a warpgroup beside 256;
     - smem, the dynamic shared memory of a block (the launch refuses fewer
-      bytes than the layout needs).  Slot walk and periodic: the cp.async
-      ring, STAGES x (BT + 128) panel rows of 128 + 16 bytes, or the k
-      groups' fold if larger, + the periodic kernel's two slots of row
-      offsets.  xres: 1024 bytes of slack to align the swizzled TMA
+      bytes than the layout needs).  Slot walk and periodic with f32 tiles:
+      the cp.async ring, STAGES x (BT + 128) panel rows of 128 + 16 bytes,
+      or the k groups' fold if larger, + the periodic kernel's two slots of
+      row offsets.  With bf16 tiles they run on the tensor cores
+      (csrc/block_ell_wgmma.cuh): WGMMA_THREADS threads at every BT, the
+      ring's STAGES x (BT + 128) rows of 128 bytes, 128-byte swizzled, after
+      1024 bytes of slack that align it, no fold, + the periodic kernel's
+      row offsets.  xres: 1024 bytes of slack to align the swizzled TMA
       stages, STAGES x (BT + 128) rows of 128 bytes and an mbarrier a stage
       (the fold reuses the ring).  grid: the slack, then in keep mode two
       128 x TN tile slices and STAGES x panels of BT x 128 bytes, else (two
@@ -152,7 +160,11 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
     x_panel, tile_panel = BT * _PANEL_BYTES, _BM * _PANEL_BYTES
     grid = (-(-rows // BT), -(-cols // _BM))
     plan = dict(BT=BT, stages=STAGES)
-    if kernel in ("slot_walk", "periodic"):
+    if kernel in ("slot_walk", "periodic") and itemsize == 2:
+        threads = WGMMA_THREADS
+        smem = _TMA_ALIGN + STAGES * (BT + _BM) * _PANEL_BYTES \
+            + (2 * BT * 8 if kernel == "periodic" else 0)
+    elif kernel in ("slot_walk", "periodic"):
         ring = STAGES * (BT + _BM) * (_PANEL_BYTES + 16)
         smem = max(ring, fold) + (2 * BT * 8 if kernel == "periodic" else 0)
     elif kernel == "xres":

@@ -168,16 +168,18 @@ def test_launch_plan(rows, dtype, tm):
 
 
 def test_launch_plan_smem_is_the_ring():
-    """Shared memory is the ring, STAGES x (BT + 128) panel rows of 128 + 16
-    bytes in either dtype (the k groups' fold fits inside it), and grows
-    with the row tile; TN does not change it."""
-    smem = [block_ell.launch_plan(BT, 128, 128, 128, torch.float32)["smem"]
-            for BT in sorted(block_ell.TILE_THREADS)]
-    assert smem == [block_ell.STAGES * (BT + 128) * 144 for BT in sorted(block_ell.TILE_THREADS)]
+    """Shared memory is the ring: with f32 tiles STAGES x (BT + 128) panel
+    rows of 128 + 16 bytes (the k groups' fold fits inside it); with bf16
+    tiles, which run on the tensor cores, STAGES x (BT + 128) swizzled rows
+    of 128 bytes after 1024 bytes of alignment slack.  It grows with the row
+    tile; TN does not change it."""
+    tiles = sorted(block_ell.TILE_THREADS)
+    smem = [block_ell.launch_plan(BT, 128, 128, 128, torch.float32)["smem"] for BT in tiles]
+    assert smem == [block_ell.STAGES * (BT + 128) * 144 for BT in tiles]
     assert smem == sorted(smem)
-    for BT in block_ell.TILE_THREADS:
-        assert block_ell.launch_plan(BT, 128, 128, 512, torch.bfloat16)["smem"] == smem[
-            sorted(block_ell.TILE_THREADS).index(BT)]
+    for BT in tiles:
+        assert block_ell.launch_plan(BT, 128, 128, 512, torch.bfloat16)["smem"] \
+            == 1024 + block_ell.STAGES * (BT + 128) * 128
 
 
 def _fold_bytes(BT, threads=None):

@@ -190,6 +190,54 @@ def test_periodic_kernel_matches_plain_on_card(R, B):
         assert bool((y[:, TM:2 * TM] == 0).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 130])
+def test_tensor_core_kernels_match_plain_on_card(B):
+    """bf16 tiles run the slot walk and the periodic kernel on the tensor
+    cores (csrc/block_ell_wgmma.cuh): both against their plain versions at
+    the parity shapes (KB not a multiple of the depth, TM = 256 and TN =
+    128 or 256, id-0 slots, an all-zero row or period row) within
+    1e-4·max(1, scale), and id-0 slots that point at an all-inf x block add
+    nothing (on tensor cores 0 x inf would be NaN)."""
+    _needs_card()
+    rng = np.random.default_rng(40 + B)
+    s, P, R, KB, n_uniq, n_cb = 1, 3, 4, 7, 9, 8
+    for tm, tn in ((256, 128), (256, 256), (128, 128)):
+        n_rb = s + P * R + 2
+        tiles = rng.standard_normal((n_uniq, tm, tn)).astype(np.float32)
+        tiles[0] = 0.0
+        ids = rng.integers(0, n_uniq, size=(n_rb, KB)).astype(np.int32)
+        ids[s + 1] = 0                          # an all-zero period row
+        ids[-1] = 0                             # an all-zero row
+        for j in range(1, R):
+            ids[s + j * P:s + (j + 1) * P] = ids[s:s + P]
+        cols = rng.integers(0, n_cb - 1, size=(n_rb, KB)).astype(np.int32)
+        x = rng.standard_normal((B, n_cb * tn)).astype(np.float32)
+        t = torch.from_numpy(tiles).cuda().to(torch.bfloat16)
+        ids_d, cols_d = torch.from_numpy(ids).cuda(), torch.from_numpy(cols).cuda()
+        xd = torch.from_numpy(x).cuda()
+        n_out = n_rb * tm
+        for fn, kw in SLOT_WALK[:4]:
+            y = fn(xd, t, ids_d, cols_d, n_out, **kw)
+            torch.cuda.synchronize()
+            _close(y, block_ell.block_ell_plain(xd, t, ids_d, cols_d, y.shape[1]), 1e-4)
+        y = block_ell.periodic_block_ell_matvec(xd, t, ids_d, cols_d, s, P, R)
+        torch.cuda.synchronize()
+        _close(y, block_ell.periodic_block_ell_plain(xd, t, ids_d, cols_d, s, P, R), 1e-4)
+        # every row's first slot: id 0 on the last, all-inf x block
+        ids_d[:, 0], cols_d[:, 0] = 0, n_cb - 1
+        x_zero = xd.clone()
+        x_zero[:, (n_cb - 1) * tn:] = 0.0
+        xd[:, (n_cb - 1) * tn:] = float("inf")
+        for fn, kw in SLOT_WALK[:4]:
+            y = fn(xd, t, ids_d, cols_d, n_out, **kw)
+            assert bool(torch.isfinite(y).all())
+            _close(y, block_ell.block_ell_plain(x_zero, t, ids_d, cols_d, y.shape[1]), 1e-4)
+        y = block_ell.periodic_block_ell_matvec(xd, t, ids_d, cols_d, s, P, R)
+        assert bool(torch.isfinite(y).all())
+        _close(y, block_ell.periodic_block_ell_plain(x_zero, t, ids_d, cols_d, s, P, R), 1e-4)
+
+
 # --------------------------------------------------- keyed nets on the card
 
 class _Globals:
