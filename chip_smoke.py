@@ -11,8 +11,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
                periodic_block_ell.cu, one nvcc each for sm_90a, started
                together) from this checkout; the tensor-core instructions
                (HGMMA, HMMA) of every kernel from cuobjdump -sass: each bf16
-               kernel of the slot walk and the periodic kernel must have
-               some, each f32 kernel none;
+               and each tf32 kernel of the slot walk and the periodic kernel
+               (five row tiles each) must have some, each f32 (FMA core)
+               kernel none;
   2. parity    every slot-walk entry (block_ell_matmul, xres, xres2, xresd at
                depths 3 and 4, grid) against its plain PyTorch version on
                seeded random Block-ELL operands (f32 and bf16 tiles, B in
@@ -29,7 +30,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
                boundaries, at every row tile, the grid kernel's tile copies
                held equal to the count its plan's walk gives; then id-0 slots
                that point at an all-inf x block must add nothing, in every
-               entry, f32 and bf16 tiles;
+               entry, f32 and bf16 tiles; every check above also runs under
+               PRECISION='default' (slice 11): the slot walk and the periodic
+               kernel as tf32 products held against plain(tf32=True) within
+               1e-4*max(1, scale), xres and grid still IEEE (1e-5); then the
+               tf32 rounding pin: on a diagonal tile whose entries and x
+               carry chosen low mantissa bits, both kernels' outputs equal
+               round_tf32's truncated products bit for bit;
   3. main path, slice 1 (launch counts set to 0 just before, read just
                after): StochasticKeynet AllConvNet (3x32x32, alpha=2,
                blocksize 8, seed 0, AllConvNet(seed=1)) at B=64 and B=1024,
@@ -39,6 +46,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
                within 1e-5*max(1, scale); every entry that the driven
                Block-ELL cores route to must have launched, xres and grid
                never (no operator routes to them);
+               slice 11, [main] under PRECISION='default' (counts set to 0
+               just before, read just after): AllConvNet at B=64 and 1024
+               and LeNet_AvgPool at B=8192, keyed (encryption and forward in
+               'default') vs the source in 'highest' within
+               1e-3*max(1, scale); every launch of the routed entries tf32;
   4. main path, slice 2 (counts set to 0 just before, read just after):
                the Givens-orthogonal VGG-16 at 3x224x224 (Keynet with
                local_geometric='givens_orthogonal', alpha=2, blocksize 14,
@@ -51,6 +63,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
                then one torch.profiler trace of the forward at B=1
                (keynet_tpu_torch.profiling.trace) and the device's busy and
                idle share of the traced window;
+               slice 11, [vgg-default] (counts set to 0 just before, read
+               just after the forwards): the same converted net under
+               PRECISION='default' (the slot walk and the periodic kernel on
+               tf32 wgmma, cuBLAS and cuDNN on TF32): keyed vs the source in
+               'highest' at B=1, 8, 32 within 3e-2*max(1, scale) beside
+               batch_spread; the periodic kernel once per periodic core per
+               forward, every launch tf32; every kernel-routed core held
+               against plain(tf32=True) at the operands the 'default'
+               forward fed it within 1e-4*max(1, scale); per-link ms at B=1
+               and 32; device memory after the phase equal to before it;
                slice 10, [vgg-bf16] (counts set to 0 just before, read just
                after): the same VGG-16 converted with TILE_DTYPE='bfloat16'
                (run_vgg_orth_224.py --tile-dtype bfloat16; the slot walk and
@@ -160,10 +182,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
                version and library times (BSR torch.sparse.mm; torch.bmm over pre-gathered operands
                for the periodic kernel, gathers not timed) with CUDA events,
                the bound from the card's data-sheet rates, and for grid the
-               tile copies it issued against the non-zero slots it walked.
+               tile copies it issued against the non-zero slots it walked;
+               the tf32 rows under PRECISION='default': the periodic kernel
+               and the head and tail rows of the f32 net's conv1_2 core at
+               B=1, 8, 32 and the slot walk at AllConvNet conv1 at B=64 and
+               1024, held against plain(tf32=True), bound at 494.7 TFLOP/s
+               dense TF32 and f32 bytes, library torch.bmm over pre-gathered
+               f32 operands with TF32 on (gathers not timed), launches the
+               tf32 ones of the 'default' paths.
 
-The last lines are the card's name and power limit, a JSON line of kernels,
-and {"ok": true, "device": {...}}.  Nothing here imports JAX or keynet_tpu.
+The last lines are the card's name and power limit, a JSON line of kernels
+(bf16 and tf32 rows nested under the periodic and xresd rows), and
+{"ok": true, "device": {...}}.  Nothing here imports JAX or keynet_tpu.
 
     python3 chip_smoke.py --ab TAG=SRC_DIR [...] [--rounds N]
 
@@ -174,8 +204,9 @@ depth-bench operand (phase_ab).
     python3 chip_smoke.py --outputs FILE [--tree DIR] [--against FILE]
 
 converts the orth VGG-16 and the AllConvNet with the keynet_tpu_torch of
-DIR (default this checkout), saves their keyed outputs and forward times,
-and holds them against another tree's file (phase_outputs).
+DIR (default this checkout), with f32 and with bf16 tiles, saves their
+keyed outputs and forward times, and holds them against another tree's
+file (phase_outputs).
 
     python3 chip_smoke.py --only vgg-stochastic|vgg-stochastic-bf16|parallel|challenge|
                                  programs|serve-vgg
@@ -193,6 +224,7 @@ converted net, the periodic kernel and xresd launched there.  Each phase's secon
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -201,6 +233,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 START_ENV = dict(os.environ)   # what the cold child processes of [programs] inherit
 TOL_F32, TOL_BF16 = 1e-5, 1e-4
+# a tf32 kernel against its plain version with the same rounding
+# (plain(tf32=True)): only the sum order differs
+TOL_TF32 = 1e-4
+# keyed under PRECISION='default' vs the source in 'highest' at AllConvNet
+# and LeNet: the limit of scripts/run_vgg_orth_224.py:55 for f32 tiles
+TOL_DEFAULT = 1e-3
 # keyed vs source with bf16 tiles, the JAX scripts' limit for that mode
 # (scripts/run_vgg_orth_224.py:55, run_vgg_stochastic_224.py:61)
 TOL_SERVE_BF16 = 3e-2
@@ -234,14 +272,19 @@ def check(err, scale, tol, what):
 
 
 class global_keys:
-    """Set keynet_tpu_torch GLOBAL keys for a conversion, restored on exit."""
+    """Set keynet_tpu_torch GLOBAL keys for a block, restored on exit, and
+    torch's TF32 flags from PRECISION on entry and exit (kt.globals.precision),
+    so that no later phase's IEEE checks run in 'default'.  Plain versions
+    on the card run in PRECISION='highest': their einsum then sums in IEEE
+    f32, whatever mode the kernel they check ran in."""
 
     def __init__(self, kt, **keys):
-        self.G, self.keys = kt.globals.GLOBAL, keys
+        self.kt, self.G, self.keys = kt, kt.globals.GLOBAL, keys
 
     def __enter__(self):
         self.saved = {k: self.G.get(k) for k in self.keys}
         self.G.update(self.keys)
+        self.kt.globals.precision()
 
     def __exit__(self, *exc):
         for k, v in self.saved.items():
@@ -249,6 +292,7 @@ class global_keys:
                 self.G.pop(k, None)
             else:
                 self.G[k] = v
+        self.kt.globals.precision()
 
 
 # --------------------------------------------------------------- phase 1
@@ -280,13 +324,17 @@ def phase_build(root=ROOT):
     return kt, block_ell, bench_kernels.card()
 
 
-# the sources whose bf16 instantiations multiply on the tensor cores
+# the sources whose bf16 and tf32 instantiations multiply on the tensor cores
 TENSOR_CORE_LIBS = ("block_ell", "periodic_block_ell")
 
 
 def kernel_dtype(mangled):
-    """'bf16' or 'f32' from a kernel's mangled name: the tensor-core configs
-    (bw::Cfg) and __nv_bfloat16 instantiations are bf16, bc::Cfg<float> f32."""
+    """The product of a kernel from its mangled name: the tensor-core
+    configs bw::Cfg<BT, float> are 'tf32', bw::Cfg<BT, __nv_bfloat16> and
+    the other __nv_bfloat16 instantiations 'bf16', bc::Cfg<float, ...> (the
+    FMA core) 'f32'."""
+    if re.search(r"bw3CfgILi\d+EfE", mangled):
+        return "tf32"
     if "bw3Cfg" in mangled or "__nv_bfloat16" in mangled:
         return "bf16"
     return "f32" if "CfgIf" in mangled else None
@@ -294,10 +342,10 @@ def kernel_dtype(mangled):
 
 def tensor_core_instructions(block_ell):
     """Count the tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in
-    each kernel of each built library, from cuobjdump -sass.  Every bf16
-    kernel of the slot walk and the periodic kernel must have some, every
-    f32 kernel none (the f32 path stays IEEE fmaf); xres and grid are
-    printed (their bf16 stays on the FMA core)."""
+    each kernel of each built library, from cuobjdump -sass.  Every bf16 and
+    tf32 kernel of the slot walk and the periodic kernel (one a row tile
+    each) must have some, every f32 kernel none (the FMA core stays IEEE
+    fmaf); xres and grid are printed (their bf16 stays on the FMA core)."""
     cuobjdump = os.path.join(os.path.dirname(block_ell._nvcc()), "cuobjdump")
     bad = []
     for name, lib in sorted(block_ell._LIBS.items()):
@@ -311,16 +359,17 @@ def tensor_core_instructions(block_ell):
         for fn, (hg, hm) in counts.items():
             dt = kernel_dtype(fn)
             by.setdefault(dt, []).append(hg + hm)
-            if name in TENSOR_CORE_LIBS and ((dt == "bf16") != (hg + hm > 0) or dt is None):
+            if name in TENSOR_CORE_LIBS and ((dt != "f32") != (hg + hm > 0) or dt is None):
                 bad.append("%s %s: %s, %d HGMMA, %d HMMA" % (name, fn, dt, hg, hm))
-        log("[build] %s tensor-core instructions (HGMMA + HMMA) a kernel, by tile dtype: %s"
+        log("[build] %s tensor-core instructions (HGMMA + HMMA) a kernel, by product: %s"
             % (name, json.dumps(by)))
-        if name in TENSOR_CORE_LIBS and len(by.get("bf16", [])) != 5:
-            bad.append("%s: %d bf16 kernels, want one a row tile (5)"
-                       % (name, len(by.get("bf16", []))))
+        for dt in ("bf16", "tf32") if name in TENSOR_CORE_LIBS else ():
+            if len(by.get(dt, [])) != 5:
+                bad.append("%s: %d %s kernels, want one a row tile (5)"
+                           % (name, len(by.get(dt, [])), dt))
     if bad:
-        raise AssertionError("[build] tensor cores: every bf16 kernel of the slot walk and "
-                             "periodic kernel must use them, no f32 kernel may: "
+        raise AssertionError("[build] tensor cores: every bf16 and tf32 kernel of the slot "
+                             "walk and periodic kernel must use them, no f32 kernel may: "
                              + "; ".join(bad))
 
 
@@ -355,7 +404,15 @@ def with_repeats(ids):
     return ids
 
 
-def phase_parity(block_ell):
+TOL_PRODUCT = {"ieee": TOL_F32, "bf16": TOL_BF16, "tf32": TOL_TF32}
+# (tile dtype, PRECISION) of the parity checks: f32 tiles in 'highest' and
+# 'default', bf16 tiles; each launch is held against the plain version with
+# the rounding of block_ell.product (tf32=True for a tf32 product) within
+# TOL_PRODUCT of that product
+PARITY_MODES = (("float32", "highest"), ("bfloat16", "highest"), ("float32", "default"))
+
+
+def phase_parity(kt, block_ell):
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
@@ -374,25 +431,33 @@ def phase_parity(block_ell):
              (31, 5, 9, 10, 6, 256, 256, 0), (33, 6, 5, 7, 5, 128, 128, 0),
              (64, 5, 8, 9, 6, 128, 256, 0), (65, 4, 6, 7, 4, 256, 256, 0)]
     worst = {}
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+    for dt, mode in PARITY_MODES:
+        dtype = getattr(torch, dt)
         for case in cases:
             B, n_rb, KB, n_uniq, n_cb, TM, TN, extra = case
             x, tiles, ids, cols = random_block_ell(rng, B, n_rb, KB, n_uniq, n_cb,
                                                    TM, TN, dtype)
             ids = with_repeats(ids)
             n_out = n_rb * TM + extra
-            ref = block_ell.block_ell_plain(x, tiles, ids, cols, n_out)
+            refs = {}
             for name, fn, kw in entries:
-                y = fn(x, tiles, ids, cols, n_out, **kw)
+                with global_keys(kt, PRECISION=mode):
+                    product = block_ell.product(name, dtype)
+                    y = fn(x, tiles, ids, cols, n_out, **kw)
                 torch.cuda.synchronize()
                 width = block_ell.out_width(n_rb, TM, n_out, grid=name.endswith("_grid"))
                 if tuple(y.shape) != (B, width):
                     raise AssertionError("%s %s: shape %s, want %s"
                                          % (name, case, tuple(y.shape), (B, width)))
+                tf32 = product == "tf32"
+                if tf32 not in refs:
+                    refs[tf32] = block_ell.block_ell_plain(x, tiles, ids, cols, n_out, tf32=tf32)
+                ref = refs[tf32]
                 err = float((y - ref[:, :width]).abs().max())
                 scale = float(ref.abs().max())
-                check(err, scale, tol, "%s%s %s %s" % (name, kw, str(dtype), case))
-                key = (name, kw.get("depth"), str(dtype))
+                what = "%s%s %s in %r %s" % (name, kw, product, mode, case)
+                check(err, scale, TOL_PRODUCT[product], what)
+                key = (name, kw.get("depth"), product, mode)
                 worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
     # periodic kernel: (B, s, P, R, KB, n_uniq, n_cb, TM, TN); R·B reaches
     # every row tile (8: 1, 8; 16: 9, 16; 32: 31; 64: 35, 64; 128: 65, 224,
@@ -403,7 +468,8 @@ def phase_parity(block_ell):
               (3, 0, 5, 3, 4, 7, 6, 128, 128), (2, 2, 3, 8, 6, 8, 9, 128, 256),
               (1, 1, 6, 31, 7, 9, 12, 128, 128), (8, 0, 4, 8, 5, 8, 7, 256, 256),
               (5, 3, 3, 13, 4, 6, 8, 128, 128)]
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+    for dt, mode in PARITY_MODES:
+        dtype = getattr(torch, dt)
         for case in pcases:
             B, s0, P, R, KB, n_uniq, n_cb, TM, TN = case
             n_rb = s0 + P * R + 2
@@ -413,19 +479,23 @@ def phase_parity(block_ell):
             for j in range(1, R):                   # the periodicity contract
                 ids[s0 + j * P:s0 + (j + 1) * P] = ids[s0:s0 + P]
             args = (x, tiles, ids, cols, s0, P, R)
-            ref = block_ell.periodic_block_ell_plain(*args)
-            y = block_ell.periodic_block_ell_matvec(*args)
+            with global_keys(kt, PRECISION=mode):
+                product = block_ell.product("periodic", dtype)
+                y = block_ell.periodic_block_ell_matvec(*args)
+            ref = block_ell.periodic_block_ell_plain(*args, tf32=product == "tf32")
             torch.cuda.synchronize()
             err = float((y - ref).abs().max())
             scale = float(ref.abs().max())
-            check(err, scale, tol, "periodic_block_ell_matvec %s %s" % (str(dtype), case))
-            key = ("periodic_block_ell_matvec", None, str(dtype))
+            check(err, scale, TOL_PRODUCT[product], "periodic_block_ell_matvec %s in %r %s"
+                  % (product, mode, case))
+            key = ("periodic_block_ell_matvec", None, product, mode)
             worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
-    staged_parity(block_ell, rng, worst)
-    for (name, depth, dt), e in sorted(worst.items(), key=str):
-        log("[parity] %-25s depth=%-4s %-15s worst max|diff|/max(1,scale) = %.3g"
-            % (name, depth, dt, e))
-    zero_slots_skipped(block_ell, entries)
+    staged_parity(kt, block_ell, rng, worst)
+    for (name, depth, product, mode), e in sorted(worst.items(), key=str):
+        log("[parity] %-25s depth=%-4s %-5s in %-9r worst max|diff|/max(1,scale) = %.3g"
+            % (name, depth, product, mode, e))
+    zero_slots_skipped(kt, block_ell, entries)
+    tf32_rounding_pin(kt, block_ell)
 
 
 def expected_grid_copies(block_ell, ids, B, n_out, TM, TN, dtype):
@@ -450,13 +520,14 @@ def expected_grid_copies(block_ell, ids, B, n_out, TM, TN, dtype):
     return copies * blocks, slots * blocks, plan
 
 
-def staged_parity(block_ell, rng, worst):
+def staged_parity(kt, block_ell, rng, worst):
     """xres and grid against the plain version on the cases their designs
     turn on: TN = 512 (f32 and bf16: the grid kernel's stream mode; bf16
     TN = 256 keeps), runs of G > 1 row-blocks with n_rb not a multiple of
     G, repeated ids within a row and across row boundaries, a, 0, a runs,
     an all-zero row, every row tile; the grid kernel's tile copies must
-    equal expected_grid_copies."""
+    equal expected_grid_copies.  Under 'default' too, where both stay on
+    the IEEE FMA core (block_ell.product)."""
     import torch
     # (B, n_rb, KB, n_uniq, n_cb, TM, TN): BT 8 (1, 5), 16 (9), 32 (20),
     # 64 (33), 128 (130, two batch tiles); G = 2 at 701 and 601 rows, 2 at
@@ -467,7 +538,8 @@ def staged_parity(block_ell, rng, worst):
              (20, 2000, 2, 4, 8, 128, 128)]
     entries = (block_ell.block_ell_matmul_xres, block_ell.block_ell_matmul_grid)
     modes = set()
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+    for dt, mode in PARITY_MODES:
+        dtype = getattr(torch, dt)
         for case in cases:
             B, n_rb, KB, n_uniq, n_cb, TM, TN = case
             x, tiles, ids, cols = random_block_ell(rng, B, n_rb, KB, n_uniq, n_cb, TM, TN, dtype)
@@ -479,16 +551,21 @@ def staged_parity(block_ell, rng, worst):
             ref = block_ell.block_ell_plain(x, tiles, ids, cols, n_out)
             scale = float(ref.abs().max())
             for fn in entries:
-                y = fn(x, tiles, ids, cols, n_out)
+                with global_keys(kt, PRECISION=mode):
+                    product = block_ell.product(fn.__name__, dtype)
+                    y = fn(x, tiles, ids, cols, n_out)
                 torch.cuda.synchronize()
-                what = "%s %s %s" % (fn.__name__, str(dtype), case)
+                tol = TOL_PRODUCT[product]
+                what = "%s %s in %r %s" % (fn.__name__, product, mode, case)
                 if tuple(y.shape) != tuple(ref.shape):
                     raise AssertionError("%s: shape %s, want %s" % (what, tuple(y.shape),
                                                                    tuple(ref.shape)))
                 err = float((y - ref).abs().max())
                 check(err, scale, tol, what)
-                key = (fn.__name__, None, str(dtype))
+                key = (fn.__name__, None, product, mode)
                 worst[key] = max(worst.get(key, 0.0), err / max(1.0, scale))
+            if mode != "highest":
+                continue
             y, copies = block_ell.grid_tile_copies(x, tiles, ids, cols, n_out)
             want, slots, plan = expected_grid_copies(block_ell, ids, B, n_out, TM, TN, dtype)
             modes.add(("keep" if plan["keep"] else "stream", plan["G"]))
@@ -497,25 +574,24 @@ def staged_parity(block_ell, rng, worst):
                                      "%d (%d slots)" % (str(dtype), case, copies, want, slots))
             check(float((y - ref).abs().max()), scale, tol, "grid (copies counted) %s" % (case,))
     log("[parity] xres and grid at TN = 512, G > 1 runs, a, 0, a and cross-row repeats: "
-        "pass; grid tile copies == the plan's count in every case; (mode, G) seen: %s"
-        % sorted(modes))
+        "pass, under 'default' too (FMA core, IEEE); grid tile copies == the plan's count in "
+        "every case; (mode, G) seen: %s" % sorted(modes))
 
 
-def zero_slots_skipped(block_ell, entries):
+def zero_slots_skipped(kt, block_ell, entries):
     """A slot with tile id 0 adds nothing, even where the x block it points
     at is not finite (the contract, pallas_kernels.py:15-16): every row's
     first slot reads an all-inf x block through tile 0, which no other slot
     reads; each entry and the periodic kernel must equal the plain version
     on x with that block zeroed, at row tiles 8, 64 and 128, with f32 tiles
-    and with bf16 tiles (on the tensor cores 0 x inf is NaN, so a slot that
-    is not skipped shows)."""
+    (FMA core, and tf32 under 'default') and with bf16 tiles (on the tensor
+    cores 0 x inf is NaN, so a slot that is not skipped shows)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(1)
     s0, P, R, n_rb, TN = 1, 4, 2, 9, 128
-    for (B, dtype, tol) in [(B, dt, tol) for dt, tol in ((torch.float32, TOL_F32),
-                                                         (torch.bfloat16, TOL_BF16))
-                            for B in (1, 33, 130)]:
+    for (dt, mode), B in [(m, B) for m in PARITY_MODES for B in (1, 33, 130)]:
+        dtype = getattr(torch, dt)
         x, tiles, ids, cols = random_block_ell(rng, B, n_rb, 6, 7, 7, 128, TN, dtype)
         for j in range(1, R):
             ids[s0 + j * P:s0 + (j + 1) * P] = ids[s0:s0 + P]
@@ -525,23 +601,100 @@ def zero_slots_skipped(block_ell, entries):
         x_zero[:, 6 * TN:] = 0.0
         x[:, 6 * TN:] = float("inf")
         n_out = n_rb * 128
-        ref = block_ell.block_ell_plain(x_zero, tiles, ids, cols, n_out)
-        runs = [("%s%s" % (name, kw), fn(x, tiles, ids, cols, n_out, **kw),
-                 ref[:, :block_ell.out_width(n_rb, 128, n_out, grid=name.endswith("_grid"))])
-                for name, fn, kw in entries]
-        runs.append(("periodic_block_ell_matvec",
-                     block_ell.periodic_block_ell_matvec(x, tiles, ids, cols, s0, P, R),
-                     block_ell.periodic_block_ell_plain(x_zero, tiles, ids, cols, s0, P, R)))
+        runs = []
+        with global_keys(kt, PRECISION=mode):
+            for name, fn, kw in entries:
+                runs.append((name, kw, block_ell.product(name, dtype),
+                             fn(x, tiles, ids, cols, n_out, **kw)))
+            runs.append(("periodic_block_ell_matvec", {}, block_ell.product("periodic", dtype),
+                         block_ell.periodic_block_ell_matvec(x, tiles, ids, cols, s0, P, R)))
         torch.cuda.synchronize()
-        for what, y, want in runs:
+        refs = {}
+        for name, kw, product, y in runs:
+            what = "%s%s %s in %r B=%d, id-0 slots on inf x" % (name, kw, product, mode, B)
             if not bool(torch.isfinite(y).all()):
-                raise AssertionError("%s %s B=%d: an id-0 slot on inf x gave a non-finite "
-                                     "output" % (what, dtype, B))
-            check(float((y - want).abs().max()), float(want.abs().max()), tol,
-                  "%s %s B=%d, id-0 slots on inf x" % (what, dtype, B))
+                raise AssertionError("%s: a non-finite output" % what)
+            tf32 = product == "tf32"
+            if name == "periodic_block_ell_matvec":
+                want = block_ell.periodic_block_ell_plain(x_zero, tiles, ids, cols, s0, P, R,
+                                                          tf32=tf32)
+            else:
+                if tf32 not in refs:
+                    refs[tf32] = block_ell.block_ell_plain(x_zero, tiles, ids, cols, n_out,
+                                                           tf32=tf32)
+                want = refs[tf32][:, :block_ell.out_width(n_rb, 128, n_out,
+                                                          grid=name.endswith("_grid"))]
+            check(float((y - want).abs().max()), float(want.abs().max()),
+                  TOL_PRODUCT[product], what)
     log("[parity] id-0 slots on inf x add nothing: every slot-walk entry and the "
-        "periodic kernel, f32 and bf16 tiles (bf16: the tensor cores, where a zero tile "
-        "times inf would be NaN), B = 1, 33, 130")
+        "periodic kernel, f32 tiles (FMA core; tf32 on the tensor cores under 'default') "
+        "and bf16 tiles (the tensor cores, where a zero tile times inf would be NaN), "
+        "B = 1, 33, 130")
+
+
+def rounding_operands():
+    """x (1, 128) and a diagonal 128 x 128 tile whose entries separate the
+    roundings an f32 operand could get on its way into a tf32 product: low
+    13 mantissa bits below, at and above half of the tf32 unit, all of them
+    set, on even and odd tf32 mantissas, of both signs, in x and in the
+    tile (the other factor 1 or 2^e, so every product is exact)."""
+    import numpy as np
+    low = [0x0FFF, 0x1000, 0x1001, 0x1FFF, 0x0001]
+    vals = []
+    for sign in (1, -1):
+        for odd in (0, 1):
+            for lb in low:
+                for e in (-3, 0, 5):
+                    bits = 0x3F800000 + (e << 23) + (odd << 13) + lb
+                    vals.append(sign * float(np.array([bits], np.uint32).view(np.float32)[0]))
+    vals = np.array(vals, np.float32)   # 60 values
+    x = np.ones(128, np.float32)
+    d = np.ones(128, np.float32)
+    x[:60] = vals                       # x carries the bits, the tile 1 ...
+    d[64:124] = vals                    # ... then the tile carries them, x 1
+    return x[None, :], np.diag(d).astype(np.float32)
+
+
+def tf32_rounding_pin(kt, block_ell):
+    """The rounding the tensor cores give f32 operands in a tf32 product,
+    pinned on the card: the slot walk and the periodic kernel under
+    'default' on rounding_operands() (one non-zero product an output, so the
+    output is that product, exact) must equal, bit for bit, the product of
+    round_tf32's operands (truncation: the 13 low mantissa bits dropped);
+    the round-to-nearest candidates (ties away, as cvt.rna.tf32.f32; ties to
+    even) are printed beside it and must differ."""
+    import numpy as np
+    import torch
+    x, tile = rounding_operands()
+
+    def rn(v, ties_away):
+        b = v.view(np.uint32).astype(np.uint64)
+        low, half = b & 0x1FFF, 0x1000
+        up = (low > half) | ((low == half) & (ties_away | ((b >> 13) & 1 == 1)))
+        return ((b - low + np.where(up, 0x2000, 0)).astype(np.uint32)).view(np.float32)
+
+    cands = {"truncate": lambda v: block_ell.round_tf32(torch.from_numpy(v)).numpy(),
+             "nearest, ties away": lambda v: rn(v, True),
+             "nearest, ties even": lambda v: rn(v, False)}
+    want = {k: (f(x) * np.diag(f(tile))[None, :]).astype(np.float32) for k, f in cands.items()}
+    tiles = torch.zeros((2, 128, 128), dtype=torch.float32, device="cuda")
+    tiles[1] = torch.from_numpy(tile)
+    ids = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    cols = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    with global_keys(kt, PRECISION="default"):
+        ys = {"slot walk": block_ell.block_ell_matmul_xresd(xd, tiles, ids, cols, 128),
+              "periodic": block_ell.periodic_block_ell_matvec(xd, tiles, ids, cols, 0, 1, 1)}
+    torch.cuda.synchronize()
+    agree = {k: {c: int((y.cpu().numpy()[:, :128].view(np.uint32)
+                         == w.view(np.uint32)).sum()) for c, w in want.items()}
+             for k, y in ys.items()}
+    log("[parity] tf32 rounding pin: outputs (of 128) equal bit for bit to each candidate "
+        "rounding's product: %s" % json.dumps(agree))
+    for k, a in agree.items():
+        if a["truncate"] != 128 or max(a["nearest, ties away"], a["nearest, ties even"]) == 128:
+            raise AssertionError("tf32 rounding pin, %s: the card does not truncate as "
+                                 "round_tf32 models it: %s" % (k, json.dumps(a)))
 
 
 # --------------------------------------------------------------- phase 3
@@ -619,33 +772,38 @@ def never_routed(launches, where):
 
 
 def keyed_vs_source(kt, net, sensor, knet, B, seed, label, timing=True, reps=5, tag="main",
-                    tol=TOL_F32):
+                    tol=TOL_F32, mode=None):
     """Encrypt a seeded batch, hold the keyed forward against the source
     forward within tol·max(1, scale), and time the keyed forward; returns
-    (cipher batch, keyed forwards run)."""
+    (cipher batch, keyed forwards run).  With ``mode`` the encryption and
+    the keyed forwards run under that PRECISION, the source forward in the
+    caller's ('highest': IEEE f32 convs, the reference)."""
     import numpy as np
     import torch
     x = np.random.default_rng(seed).standard_normal((B, *net.inshape)).astype(np.float32)
     xd = torch.from_numpy(x).cuda()
-    xc = sensor.fromtensor(xd).encrypt().tensor()
-    y = knet.forward(xc)
     ys = net.forward(xd)
-    torch.cuda.synchronize()
-    if tuple(y.shape) != tuple(ys.shape) or not bool(torch.isfinite(y).all()):
-        raise AssertionError("%s: bad output %s (finite=%s)"
-                             % (label, tuple(y.shape), bool(torch.isfinite(y).all())))
-    err = float((y - ys).abs().max())
-    scale = float(ys.abs().max())
-    check(err, scale, tol, "%s keyed vs source" % label)
-    # how far the source outputs of the batch stray from their mean: the part
-    # of the output that depends on the image, which the error is set against
-    res = {"B": B, "max_abs_err": err, "scale": scale, "limit": tol * max(1.0, scale),
-           "batch_spread": float((ys - ys.mean(0)).abs().max())}
-    forwards = 1
-    if timing:
-        ms, times = cuda_ms(lambda: knet.forward(xc), reps=reps, warmup=1)
-        res.update(ms=ms, imgs_per_s=B / (ms / 1e3), reps_ms=times)
-        forwards += 1 + reps
+    with global_keys(kt, PRECISION=mode or kt.globals.GLOBAL["PRECISION"]):
+        xc = sensor.fromtensor(xd).encrypt().tensor()
+        y = knet.forward(xc)
+        torch.cuda.synchronize()
+        if tuple(y.shape) != tuple(ys.shape) or not bool(torch.isfinite(y).all()):
+            raise AssertionError("%s: bad output %s (finite=%s)"
+                                 % (label, tuple(y.shape), bool(torch.isfinite(y).all())))
+        err = float((y - ys).abs().max())
+        scale = float(ys.abs().max())
+        check(err, scale, tol, "%s keyed vs source" % label)
+        # how far the source outputs of the batch stray from their mean: the part
+        # of the output that depends on the image, which the error is set against
+        res = {"B": B, "max_abs_err": err, "scale": scale, "limit": tol * max(1.0, scale),
+               "batch_spread": float((ys - ys.mean(0)).abs().max())}
+        if mode:
+            res["precision"] = mode
+        forwards = 1
+        if timing:
+            ms, times = cuda_ms(lambda: knet.forward(xc), reps=reps, warmup=1)
+            res.update(ms=ms, imgs_per_s=B / (ms / 1e3), reps_ms=times)
+            forwards += 1 + reps
     log("[%s] %s B=%d: %s" % (tag, label, B, json.dumps(res)))
     return xc, forwards
 
@@ -724,7 +882,49 @@ def phase_main_allconv(kt, block_ell):
     x1 = np.random.default_rng(0).standard_normal((1, *net.inshape)).astype(np.float32)
     xcs[1] = sensor.fromtensor(torch.from_numpy(x1).cuda()).encrypt().tensor()
     return {"allconv": (knet, xcs), "allconv keynet": (net, sensor, knet),
-            "narrow": (nk, xn)}, launches
+            "lenet keynet": (lenet, ls, lk), "narrow": (nk, xn)}, launches
+
+
+def default_launches(block_ell, cores, where):
+    """The counts read right after a PRECISION='default' run: every kernel
+    entry the driven Block-ELL ``cores`` ((core, rows an image, batches))
+    route to must have launched, each launch of the slot walk and the
+    periodic kernel a tf32 one (f32 tiles); xres and grid never.  Returns
+    (launches, tf32 launches)."""
+    import torch
+    torch.cuda.synchronize()
+    launches, tf32 = dict(block_ell.LAUNCHES), dict(block_ell.TF32_LAUNCHES)
+    routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for c, m, bs in cores
+                                  for B in bs)))
+    log("[%s] launches: %s; tf32 launches: %s; entries routed by the driven Block-ELL "
+        "cores: %s" % (where, json.dumps(launches), json.dumps(tf32), routed))
+    for name in routed:
+        if launches[name] <= 0 or tf32[name] != launches[name]:
+            raise AssertionError("%s: %s launched %d times, %d of them tf32; want > 0, all "
+                                 "tf32" % (where, name, launches[name], tf32[name]))
+    never_routed(launches, where)
+    return launches, tf32
+
+
+def phase_main_default(kt, block_ell, paths):
+    """Slice 11, [main] under PRECISION='default' (the counterpart of
+    bench.py:146-160's bf16-mode diagnostic): StochasticKeynet AllConvNet at
+    B=64 and 1024 (conv1's core on the tf32 slot walk, the Kronecker and
+    TapSum chains on cuBLAS TF32) and PermutationKeynet LeNet_AvgPool at
+    B=8192 (Dense and ELL only: no kernel), keyed vs the source computed in
+    'highest' within TOL_DEFAULT·max(1, scale).  Counts set to 0 just
+    before, read just after (default_launches).  Returns (launches, tf32
+    launches)."""
+    net, sensor, knet = paths["allconv keynet"]
+    lenet, ls, lk = paths.pop("lenet keynet")
+    block_ell.reset_launches()
+    for B in (64, 1024):
+        keyed_vs_source(kt, net, sensor, knet, B, B, "AllConvNet 'default'", tol=TOL_DEFAULT,
+                        mode="default")
+    keyed_vs_source(kt, lenet, ls, lk, 8192, 3, "LeNet_AvgPool 'default'", tol=TOL_DEFAULT,
+                    mode="default")
+    cores = [(c, m, (64, 1024)) for _, c, m in block_ell_cores(sensor, knet)]
+    return default_launches(block_ell, cores, "main 'default'")
 
 
 def phase_main_vgg(kt, block_ell, bf16=False, f32_memory=None):
@@ -801,16 +1001,79 @@ def phase_main_vgg(kt, block_ell, bf16=False, f32_memory=None):
         layer_breakdown(label, knet, xcs[B])
     if not bf16:
         trace_forward(kt, knet, xcs[1], "vgg_orth_forward_B1")
-    return {tag: (knet, xcs, cores), tag + " memory": memory}, launches
+    return {tag: (knet, xcs, cores), tag + " memory": memory,
+            tag + " keynet": (net, sensor, knet)}, launches
 
 
-def hold_cores_at_forward(block_ell, sensor, knet, cores, xcs, inshape):
+def phase_vgg_default(kt, block_ell, paths):
+    """Slice 11, [vgg-default]: the orth VGG-16 that [vgg] converted (f32
+    tiles; no second conversion) under PRECISION='default': the slot walk
+    and the periodic kernel on tf32 wgmma, the Kronecker chains, pools and
+    fc layers on cuBLAS TF32.  Counts set to 0 just before and read just
+    after the forwards: keyed vs the source computed in 'highest' at B=1, 8,
+    32 within TOL_SERVE_BF16 (the output hardly depends on the image at 224,
+    PERF.md §5: batch_spread beside it; the per-core holds carry the check),
+    the periodic kernel launched once per periodic core per forward, every
+    launch of the slot walk and the periodic kernel tf32
+    (default_launches); then every kernel-routed core held against
+    plain(tf32=True) at the operands the 'default' forward fed it
+    (TOL_TF32), per-link ms at B=1 and 32, and the device memory held after
+    the phase (the sensor's image put back) equal to before it: the mode
+    adds no device state; device_bytes() equal to [vgg]'s.  Returns
+    (launches, tf32 launches)."""
+    import torch
+    tag, label = "vgg-default", "VGG16 orth 'default'"
+    net, sensor, knet = paths["vgg keynet"]
+    _, _, cores = paths["vgg"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    held = sensor.tensor()   # the image the sensor holds: put back before the count
+    block_ell.reset_launches()
+    xcs, forwards = {}, {}
+    for B in (1, 8, 32):
+        xcs[B], forwards[B] = keyed_vs_source(
+            kt, net, sensor, knet, B, 100 + B, label, reps=5 if B < 32 else 3, tag=tag,
+            tol=TOL_SERVE_BF16, mode="default")
+    launches, tf32 = default_launches(
+        block_ell, [(c, m, tuple(forwards)) for _, c, m in cores], tag)
+    want = sum(forwards[B] * sum("periodic_block_ell_matvec" in entries_of(block_ell, c, B * m)
+                                 for n, c, m in cores if c.period is not None and n != "sensor")
+               for B in forwards)
+    log("[%s] periodic launches %d (tf32 %d), at least %d wanted"
+        % (tag, launches["periodic_block_ell_matvec"], tf32["periodic_block_ell_matvec"], want))
+    if launches["periodic_block_ell_matvec"] < want or want == 0:
+        raise AssertionError("periodic_block_ell_matvec launched %d times, want >= %d"
+                             % (launches["periodic_block_ell_matvec"], want))
+    with global_keys(kt, PRECISION="default"):
+        hold_cores_at_forward(block_ell, sensor, knet, cores, xcs, net.inshape, tag)
+        for B in (1, 32):
+            layer_breakdown(label, knet, xcs[B])
+    del xcs
+    sensor.fromtensor(held)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    f32 = paths["vgg memory"]
+    counted = knet.device_bytes() + sensor.device_bytes()
+    log("[%s] device memory: %s" % (tag, json.dumps(dict(
+        memory_allocated_before=before, memory_allocated_after=after,
+        device_bytes=counted, f32_net_device_bytes=f32["device_bytes"],
+        f32_net_memory_allocated=f32["memory_allocated"]))))
+    if after != before or counted != f32["device_bytes"]:
+        raise AssertionError("[%s] the mode changed the device memory held: %d -> %d bytes "
+                             "allocated, device_bytes %d against [vgg]'s %d"
+                             % (tag, before, after, counted, f32["device_bytes"]))
+    return launches, tf32
+
+
+def hold_cores_at_forward(block_ell, sensor, knet, cores, xcs, inshape, tag="vgg-bf16"):
     """Every Block-ELL core of a keyed sensor and net that routes to a kernel,
     held against the kernel's plain version at the operands the keyed
-    forward (and the encryption) fed it at each batch of ``xcs``: the
-    operands are recorded as the cores hand them on (fed_operands), then go
-    through the routed wrapper and the plain version (hold_fed, TOL_BF16 for
-    bf16 tiles).  Fails where a kernel-routed core was fed nothing."""
+    forward (and the encryption) fed it at each batch of ``xcs``, under the
+    caller's PRECISION: the operands are recorded as the cores hand them on
+    (fed_operands), then go through the routed wrapper and the plain
+    version (hold_fed: TOL_BF16 for bf16 tiles, plain(tf32=True) and
+    TOL_TF32 for tf32 launches).  Fails where a kernel-routed core was fed
+    nothing."""
     import numpy as np
     import torch
     held = {}
@@ -821,16 +1084,16 @@ def hold_cores_at_forward(block_ell, sensor, knet, cores, xcs, inshape):
             knet.forward(xc)
         torch.cuda.synchronize()
         for entry, line in hold_fed(block_ell, rec.calls, "B=%d" % B):
-            log("[vgg-bf16] held %s" % line)
+            log("[%s] held %s" % (tag, line))
             held[entry] = held.get(entry, 0) + 1
         fed = {name for name, _, _, _ in rec.calls}
         for name, c, m in cores:
             if entries_of(block_ell, c, B * m) and name not in fed:
-                raise AssertionError("[vgg-bf16] %s routes to a kernel at B=%d and was fed "
-                                     "nothing" % (name, B))
+                raise AssertionError("[%s] %s routes to a kernel at B=%d and was fed "
+                                     "nothing" % (tag, name, B))
         del rec
-    log("[vgg-bf16] kernel-routed cores held against their plain versions at the forward's "
-        "operands (B = %s): %s" % (sorted(xcs), json.dumps(held)))
+    log("[%s] kernel-routed cores held against their plain versions at the forward's "
+        "operands (B = %s): %s" % (tag, sorted(xcs), json.dumps(held)))
 
 
 def trace_forward(kt, knet, xc, name):
@@ -939,32 +1202,48 @@ def bsr_library_ms(tiles, tile_ids, col_blk, x):
 def measure_operand(block_ell, bk, fn, kw, tiles, ids, cols, x, where, peaks):
     """One entry on one Block-ELL operand: checked against the plain version
     (shape and values), then timed with the plain version and the BSR
-    yardstick beside it."""
+    yardstick beside it.  Under PRECISION='default' with f32 tiles the slot
+    walk runs tf32: held against plain(tf32=True), bound at the TF32 rate,
+    the yardstick torch.bmm with TF32 on (bmm_slot_library_ms)."""
     import torch
+    import keynet_tpu_torch as kt
     B = x.shape[0]
     TM, TN = tiles.shape[1], tiles.shape[2]
     n_out = ids.shape[0] * TM
     args = (x, tiles, ids, cols, n_out)
+    product = block_ell.product(fn.__name__, tiles.dtype)
+    tf32 = product == "tf32"
     y = fn(*args, **kw)
-    ref = block_ell.block_ell_plain(*args)
+    with global_keys(kt, PRECISION="highest"):
+        ref = block_ell.block_ell_plain(*args, tf32=tf32)
     torch.cuda.synchronize()
     if y.shape != ref.shape:
         raise AssertionError("%s at %s: shape %s, plain %s"
                              % (fn.__name__, where, tuple(y.shape), tuple(ref.shape)))
     err = float((y - ref).abs().max())
-    tol = TOL_F32 if tiles.dtype == torch.float32 else TOL_BF16
-    check(err, float(ref.abs().max()), tol, "%s at %s" % (fn.__name__, where))
+    check(err, float(ref.abs().max()), TOL_PRODUCT[product], "%s at %s" % (fn.__name__, where))
     del y
     ms, _ = cuda_ms(lambda: fn(*args, **kw), reps=10)
-    plain_ms, _ = cuda_ms(lambda: block_ell.block_ell_plain(*args), reps=5)
+    with global_keys(kt, PRECISION="highest"):
+        plain_ms, _ = cuda_ms(lambda: block_ell.block_ell_plain(*args, tf32=tf32), reps=5)
+    extra = {}
     try:
-        lib_ms, ylib = bsr_library_ms(tiles, ids, cols, x)
-        lib_err = float((ylib - ref).abs().max())
+        if tf32:
+            lib_ms, ylib = bmm_slot_library_ms(tiles, ids, cols, x)
+            if ylib is not None:
+                # the yardstick's rounding: its error beside the IEEE result's
+                with global_keys(kt, PRECISION="highest"):
+                    extra["library_vs_ieee_max_abs_err"] = float(
+                        (ylib - block_ell.block_ell_plain(*args)).abs().max())
+        else:
+            lib_ms, ylib = bsr_library_ms(tiles, ids, cols, x)
+        lib_err = None if ylib is None else float((ylib - ref).abs().max())
         del ylib
     except (RuntimeError, NotImplementedError) as e:  # the yardstick only
         log("[kernels] torch.sparse.mm BSR yardstick unavailable: %s" % e)
         lib_ms = lib_err = None
-    w = bk.work(ids, TM, TN, x.shape[1], n_out, B, tiles.element_size(), peaks)
+    w = bk.work(ids, cols, TM, TN, n_out, B, tiles.element_size(), peaks,
+                rate="tf32" if tf32 else None)
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"], "library_ms": lib_ms}
     if fn is block_ell.block_ell_matmul_grid:
@@ -977,8 +1256,33 @@ def measure_operand(block_ell, bk, fn, kw, tiles, ids, cols, x, where, peaks):
         res.update(tile_copies=copies, slots_walked=slots, G=plan["G"],
                    mode="keep" if plan["keep"] else "stream")
     log("[kernels] %s at %s: %s" % (fn.__name__, where, json.dumps(dict(
-        w, **res, library_max_abs_err=lib_err, achieved_tflops=w["flops"] / ms / 1e9))))
+        w, **res, **extra, product=product, library_max_abs_err=lib_err,
+        achieved_tflops=w["flops"] / ms / 1e9))))
     return res
+
+
+def bmm_slot_library_ms(tiles, tile_ids, col_blk, x):
+    """One torch.bmm in the tile dtype over the slot walk's pre-gathered
+    operands, batch n_rb, (B, KB·TN) x (KB·TN, TM) (id-0 slots gather the
+    zero tile) — the yardstick of the tf32 rows, which run it with TF32 on;
+    timed without its gathers; the port never calls it.  (None, None) when
+    the gathered operands would not fit the card."""
+    import torch
+    n_rb, KB = tile_ids.shape
+    TM, TN = tiles.shape[1], tiles.shape[2]
+    B = x.shape[0]
+    need = tiles.element_size() * n_rb * (B * KB * TN + KB * TN * TM + B * TM)
+    free = torch.cuda.mem_get_info()[0]
+    if need > 0.8 * free:
+        log("[kernels] torch.bmm yardstick at B=%d skipped: its gathered operands take "
+            "%.1f GB, %.1f GB free" % (B, need / 1e9, free / 1e9))
+        return None, None
+    xb = x.to(tiles.dtype).reshape(B, -1, TN)
+    Xg = xb[:, col_blk.long()].permute(1, 0, 2, 3).reshape(n_rb, B, KB * TN)
+    Tg = tiles[tile_ids.long()].permute(0, 1, 3, 2).reshape(n_rb, KB * TN, TM)
+    y = torch.bmm(Xg, Tg)                                          # (n_rb, B, TM)
+    ms, _ = cuda_ms(lambda: torch.bmm(Xg, Tg), reps=5)
+    return ms, y.permute(1, 0, 2).reshape(B, n_rb * TM).float()
 
 
 def measure(block_ell, bk, fn, kw, model, xc, where, peaks):
@@ -988,10 +1292,12 @@ def measure(block_ell, bk, fn, kw, model, xc, where, peaks):
                            inner.col_blk, x, where, peaks)
 
 
-def phase_kernels(kt, block_ell, bk, paths, by_path, peaks):
+def phase_kernels(kt, block_ell, bk, paths, by_path, peaks, tf32_launches=None):
     """One row per Pallas function (launches: summed over the main paths,
     and each path's count), the stochastic VGG's kernel row, and the bf16
-    rows of the slot walk and the periodic kernel (bf16_kernel_rows)."""
+    and tf32 rows of the slot walk and the periodic kernel
+    (bf16_kernel_rows; tf32_kernel_rows, with the tf32 launches of the
+    'default' paths)."""
     import numpy as np
     import torch
     launches = {n: sum(p[n] for p in by_path.values()) for n in block_ell.ENTRIES}
@@ -1075,10 +1381,63 @@ def phase_kernels(kt, block_ell, bk, paths, by_path, peaks):
         stochastic_kernel_rows(be, bk, *paths["vgg-stochastic"], peaks)
     if "vgg-bf16" in paths:
         bf16 = bf16_kernel_rows(kt, be, bk, paths, by_path[BF16_PATH], peaks)
-        for n in ("periodic_block_ell_matvec", "block_ell_matmul_xresd"):
+        for n in bf16:
             rows[n]["bf16"] = [dict(r, name=n, route="cuda", source=rows[n]["source"],
                                     replaces=rows[n]["replaces"]) for r in bf16[n]]
+    if tf32_launches is not None:
+        tf32 = tf32_kernel_rows(kt, be, bk, paths, tf32_launches, peaks)
+        for n in ("periodic_block_ell_matvec", "block_ell_matmul_xresd"):
+            rows[n]["tf32"] = [dict(r, name=n, route="cuda", source=rows[n]["source"],
+                                    replaces=rows[n]["replaces"]) for r in tf32[n]]
     return [rows[n] for n in be.ENTRIES]
+
+
+DEFAULT_PATHS = ("slice 11 (AllConvNet, LeNet 'default')", "slice 11 (VGG orth 'default')")
+
+
+def tf32_kernel_rows(kt, block_ell, bk, paths, launches, peaks):
+    """The tf32 (tensor-core) rows of the slot walk and the periodic kernel,
+    under PRECISION='default' with the f32 nets' tiles: the periodic kernel
+    at the orth VGG-16's conv1_2 core and the slot walk on that core's head
+    and tail rows at B = 1, 8, 32, fed as the 'default' forward feeds them;
+    the slot walk at AllConvNet conv1 at B = 64 and 1024.  Each: kernel,
+    plain (tf32=True) and library ms (torch.bmm over pre-gathered f32
+    operands with TF32 on, gathers untimed), the bound at the TF32 rate and
+    4 bytes a tile element, and the entry's tf32 launches on the 'default'
+    paths (``launches``).  Returns {entry: [rows]}."""
+    be = block_ell
+    knet, xcs, cores = paths["vgg"]
+    name = max((n for n, c, _ in cores if c.period is not None),
+               key=lambda n: periodic_work(next(c for m, c, _ in cores if m == n))["slots"])
+    out = {"periodic_block_ell_matvec": [], "block_ell_matmul_xresd": []}
+    aknet, axcs = paths["allconv"]
+    with global_keys(kt, PRECISION="default"):
+        for B in (1, 8, 32):
+            r = measure_periodic(be, knet, xcs[B], name, peaks, label="VGG16 orth 'default'")
+            out["periodic_block_ell_matvec"].append(dict(
+                r, where="VGG16 orth %s core, 'default' (tf32), B=%d" % (name, B),
+                launches=launches["periodic_block_ell_matvec"]))
+        for B in (1, 8, 32):
+            core, x = core_input(knet, xcs[B], name)
+            fn = be.route(core.tile_ids.shape[1])
+            parts = [measure_operand(be, bk, fn, {}, core.tiles, core.tile_ids[a:b],
+                                     core.col_blk[a:b], x, "VGG16 orth %s core %s rows "
+                                     "[%d, %d), 'default' (tf32), B=%d" % (name, part, a, b, B),
+                                     peaks)
+                     for part, (a, b) in zip(("head", "tail"), outside_period(core))]
+            out[fn.__name__].append(dict(summed(parts), launches=launches[fn.__name__],
+                                         where="VGG16 orth %s core head + tail rows, 'default' "
+                                         "(tf32), B=%d" % (name, B)))
+        for B in (64, 1024):
+            core, x = core_input(aknet, axcs[B], "conv1")
+            where = "AllConvNet conv1 core, 'default' (tf32), B=%d" % B
+            r = measure_operand(be, bk, be.block_ell_matmul_xresd, {"depth": 4}, core.tiles,
+                                core.tile_ids, core.col_blk, x, where, peaks)
+            out["block_ell_matmul_xresd"].append(dict(
+                r, where=where, launches=launches["block_ell_matmul_xresd"]))
+    for n, rs in out.items():
+        log("[kernels] %s tf32 (tensor cores): %s" % (n, json.dumps(rs)))
+    return out
 
 
 BF16_PATH = "slice 10 (VGG orth bf16)"
@@ -1111,7 +1470,8 @@ def bf16_kernel_rows(kt, block_ell, bk, paths, launches, peaks):
     cast to bf16 at B = 64 and 1024 (the cast is first held equal to a
     TILE_DTYPE='bfloat16' conversion's conv1 core).  Each: kernel, plain and
     library ms, the bound at the bf16 rate and 2 bytes a tile element, and
-    the entry's launches on the bf16 path.  Returns {entry: [rows]}."""
+    the entry's launches on the bf16 path; xres and grid (bench only) at
+    that operand at B=64.  Returns {entry: [rows]}."""
     import torch
     be = block_ell
     knet, xcs, cores = paths["vgg-bf16"]
@@ -1156,8 +1516,15 @@ def bf16_kernel_rows(kt, block_ell, bk, paths, launches, peaks):
         out["block_ell_matmul_xresd"].append(dict(
             r, where="AllConvNet conv1 core, bf16 tiles, B=%d" % B,
             launches=launches["block_ell_matmul_xresd"]))
+    # xres and grid (bench only; their bf16 widens to f32 on the FMA core) at
+    # the same operand, B=64, beside the slot walk's row above
+    _, x = core_input(aknet, axcs[64], "conv1")
+    for fn in (be.block_ell_matmul_xres, be.block_ell_matmul_grid):
+        where = "AllConvNet conv1 core, bf16 tiles, B=64"
+        r = measure_operand(be, bk, fn, {}, tiles, core.tile_ids, core.col_blk, x, where, peaks)
+        out[fn.__name__] = [dict(r, where=where, launches=launches[fn.__name__])]
     for n, rs in out.items():
-        log("[kernels] %s bf16 (tensor cores): %s" % (n, json.dumps(rs)))
+        log("[kernels] %s bf16: %s" % (n, json.dumps(rs)))
     return out
 
 
@@ -1194,8 +1561,9 @@ def outside_period(core):
 
 def periodic_work(core, B=1):
     """Slots, FLOPs and least bytes of one periodic mid-section apply at
-    batch B: each referenced tile read once, x read once, the f32 output
-    written once, the period's ids and the mid rows' column blocks read."""
+    batch B: each referenced tile read once, each x block a non-zero slot
+    of the mid rows reads once, the f32 output written once, the period's
+    ids and the mid rows' column blocks read."""
     import torch
     s, P, R = core.period
     ids = core.tile_ids[s:s + P]
@@ -1203,9 +1571,10 @@ def periodic_work(core, B=1):
     it = core.tiles.element_size()
     nz = int((ids > 0).sum())
     uniq = int(torch.unique(ids[ids > 0]).numel())
-    n_cols = -(-core.shape[1] // TN) * TN
+    cols = core.col_blk[s:s + P * R].reshape(R, P, -1)
+    x_blocks = int(torch.unique(cols[(ids > 0).expand(R, -1, -1)]).numel())
     return dict(slots=nz * R, flops=2.0 * TM * TN * B * R * nz,
-                bytes=uniq * TM * TN * it + B * n_cols * it + B * P * R * TM * 4
+                bytes=uniq * TM * TN * it + B * x_blocks * TN * it + B * P * R * TM * 4
                 + ids.numel() * 4 + P * R * ids.shape[1] * 4,
                 period_tile_bytes=nz * TM * TN * it, unique_tiles=uniq)
 
@@ -1246,30 +1615,42 @@ def measure_periodic(block_ell, knet, xc, layer, peaks, label="VGG16 orth"):
     activations of ``xc``: checked against the plain version, timed beside
     it and the torch.bmm yardstick."""
     import torch
+    import keynet_tpu_torch as kt
     core, x = core_input(knet, xc, layer)
     B = x.shape[0]
     s, P, R = core.period
     args = (x, core.tiles, core.tile_ids, core.col_blk, s, P, R)
+    product = block_ell.product("periodic", core.tiles.dtype)
+    tf32 = product == "tf32"
     y = block_ell.periodic_block_ell_matvec(*args)
-    ref = block_ell.periodic_block_ell_plain(*args)
+    with global_keys(kt, PRECISION="highest"):
+        ref = block_ell.periodic_block_ell_plain(*args, tf32=tf32)
     torch.cuda.synchronize()
     err = float((y - ref).abs().max())
     where = "%s %s core %s, B=%d" % (label, layer, core.period, B)
-    tol = TOL_F32 if core.tiles.dtype == torch.float32 else TOL_BF16
-    check(err, float(ref.abs().max()), tol, "periodic_block_ell_matvec at " + where)
+    check(err, float(ref.abs().max()), TOL_PRODUCT[product],
+          "periodic_block_ell_matvec at " + where)
     ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_matvec(*args), reps=10)
-    plain_ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_plain(*args), reps=3)
+    with global_keys(kt, PRECISION="highest"):
+        plain_ms, _ = cuda_ms(lambda: block_ell.periodic_block_ell_plain(*args, tf32=tf32),
+                              reps=3)
     lib_ms, ylib = bmm_library_ms(core, x)
     lib_err = None if ylib is None else float((ylib - ref).abs().max())
+    extra = {}
+    if tf32 and ylib is not None:   # the yardstick's rounding, beside the IEEE result's
+        with global_keys(kt, PRECISION="highest"):
+            extra["library_vs_ieee_max_abs_err"] = float(
+                (ylib - block_ell.periodic_block_ell_plain(*args)).abs().max())
     del ylib
     work = periodic_work(core, B)
-    peak = peaks["f32"] if core.tiles.dtype == torch.float32 else peaks["bf16"]
+    peak = peaks[{"ieee": "f32"}.get(product, product)]
     t_ops, t_bytes = work["flops"] / peak, work["bytes"] / peaks["bw"]
     bms = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     log("[kernels] periodic_block_ell_matvec at %s: %s" % (where, json.dumps(dict(
         work, KB=int(core.tile_ids.shape[1]), ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, library_max_abs_err=lib_err, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms, library_max_abs_err=lib_err, **extra, product=product,
+        bound_ms=bms, bound_by=by,
         period_tiles_once_ms=work["period_tile_bytes"] / peaks["bw"] * 1e3,
         achieved_tflops=work["flops"] / ms / 1e9))))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1806,10 +2187,12 @@ class fed_operands:
 
 def hold_fed(block_ell, calls, what):
     """Each recorded kernel operand through the wrapper the op routes it to
-    and through the kernel's plain version, held within the parity phase's
-    tolerance; returns (entry, line) a call.  Operands the route sends to an
-    einsum (sub-128 tiles, the CPU) have no kernel to hold."""
-    import torch
+    (under the caller's PRECISION) and through the kernel's plain version
+    (in 'highest': IEEE f32 sums of the product's operands), held within
+    the parity phase's tolerance for the product; returns (entry, line) a
+    call.  Operands the route sends to an einsum (sub-128 tiles, the CPU)
+    have no kernel to hold."""
+    import keynet_tpu_torch as kt
     from keynet_tpu_torch.ops.operators import block_ell_route
     lines = []
     for owner, core, rows, x in calls:
@@ -1824,14 +2207,18 @@ def hold_fed(block_ell, calls, what):
             a, b = rows
             args = (x, core.tiles, core.tile_ids[a:b], core.col_blk[a:b], (b - a) * TM)
             fn, ref = block_ell.route(core.tile_ids.shape[1]), block_ell.block_ell_plain
-        y, want = fn(*args), ref(*args)
+        product = block_ell.product(fn.__name__, core.tiles.dtype)
+        y = fn(*args)
+        with global_keys(kt, PRECISION="highest"):
+            want = ref(*args, tf32=product == "tf32")
         sync(x.device)
         err, scale = float((y - want).abs().max()), float(want.abs().max())
-        tol = TOL_F32 if core.tiles.dtype == torch.float32 else TOL_BF16
+        tol = TOL_PRODUCT[product]
         check(err, scale, tol, "%s%s: %s vs its plain version"
               % ("" if isinstance(owner, str) else "[parallel] ", what, fn.__name__))
         if isinstance(owner, str):
-            zero = "%s, %s tiles" % (owner, str(core.tiles.dtype).replace("torch.", ""))
+            zero = "%s, %s tiles, %s" % (owner, str(core.tiles.dtype).replace("torch.", ""),
+                                         product)
         else:
             zero = "a zero tile put first, ids shifted" if owner.zero_tile_added \
                 else "local id 0 the zero tile"
@@ -2335,17 +2722,20 @@ def phase_serve_vgg(kt, block_ell):
 def phase_outputs(kt, path, against=None):
     """The keyed outputs and forward times of the orth VGG-16 (B=1, 8, 32)
     and the StochasticKeynet AllConvNet (B=64, 1024) on chip_smoke's seeded
-    batches, written to ``path`` (npz).  With ``against`` (such a file from
-    another tree), prints each output's max|diff| from it and the ratio of
-    the times."""
+    batches, with f32 tiles and with bf16 tiles (tags "... bf16"), written
+    to ``path`` (npz).  With ``against`` (such a file from another tree),
+    prints each output's max|diff| from it and the ratio of the times."""
     import numpy as np
     import torch
     out, ms = {}, {}
     for tag, make, batches in (("vgg", vgg_keynet, (1, 8, 32)),
-                               ("allconv", allconv_keynet, (64, 1024))):
-        net, sensor, knet = make(kt)
+                               ("allconv", allconv_keynet, (64, 1024)),
+                               ("vgg bf16", vgg_keynet, (1, 8, 32)),
+                               ("allconv bf16", allconv_keynet, (64, 1024))):
+        with global_keys(kt, TILE_DTYPE="bfloat16" if tag.endswith("bf16") else "float32"):
+            net, sensor, knet = make(kt)
         for B in batches:
-            x = np.random.default_rng(B if tag == "allconv" else 100 + B) \
+            x = np.random.default_rng(B if tag.startswith("allconv") else 100 + B) \
                 .standard_normal((B, *net.inshape)).astype(np.float32)
             xc = sensor.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor()
             key = "%s B=%d" % (tag, B)
@@ -2357,6 +2747,11 @@ def phase_outputs(kt, path, against=None):
     log("[outputs] %s: %s" % (path, json.dumps(ms)))
     if against:
         with np.load(against) as ref:
+            theirs = {k for k in ref.files if not k.startswith("ms ")}
+            if theirs != set(out):
+                raise AssertionError("[outputs] %s holds %s, this run %s: both come from this "
+                                     "script, so the keys must agree"
+                                     % (against, sorted(theirs), sorted(out)))
             for k in out:
                 log("[outputs] %s: max|diff| from %s %.3g (bitwise equal: %s), ms %.3f "
                     "against %.3f" % (k, against, float(np.abs(out[k] - ref[k]).max()),
@@ -2609,15 +3004,20 @@ def main(argv=None):
         card, peaks = bk.card_peaks(name)
         log("[build] device %s (%d visible); bounds use %s data-sheet rates %s"
             % (name, torch.cuda.device_count(), card, json.dumps(peaks)))
-        timed("parity", phase_parity, block_ell)
+        timed("parity", phase_parity, kt, block_ell)
         paths, launches = timed("slice 1", phase_main_allconv, kt, block_ell)
+        main_default, main_tf32 = timed(DEFAULT_PATHS[0], phase_main_default, kt, block_ell,
+                                        paths)
         vgg_paths, vgg_launches = timed("slice 2 (VGG orth)", phase_main_vgg, kt, block_ell)
         paths.update(vgg_paths)
+        vgg_default, vgg_tf32 = timed(DEFAULT_PATHS[1], phase_vgg_default, kt, block_ell,
+                                      paths)
         bf16_paths, bf16_launches = timed(BF16_PATH, phase_main_vgg, kt, block_ell, True,
                                           paths["vgg memory"])
         paths.update(bf16_paths)
         bench_launches = timed("slice 3 (bench)", phase_bench, block_ell, bk)
-        by_path = {"slice 1": launches, "slice 2 (VGG)": vgg_launches,
+        by_path = {"slice 1": launches, DEFAULT_PATHS[0]: main_default,
+                   "slice 2 (VGG)": vgg_launches, DEFAULT_PATHS[1]: vgg_default,
                    BF16_PATH: bf16_launches, "slice 3 (bench)": bench_launches,
                    "slice 6 (train)": timed("slice 6 (train)", phase_train, kt, block_ell),
                    "slice 6 (tiled)": timed("slice 6 (tiled)", phase_tiled, kt, block_ell),
@@ -2632,7 +3032,10 @@ def main(argv=None):
         by_path["slice 9 (programs)"] = timed("slice 9 (programs)", phase_programs, kt,
                                               block_ell, paths.pop("allconv keynet"))
         log("[main] launches by path: %s" % json.dumps(by_path))
-        rows = timed("kernels", phase_kernels, kt, block_ell, bk, paths, by_path, peaks)
+        tf32_launches = {n: main_tf32[n] + vgg_tf32[n] for n in block_ell.ENTRIES}
+        log("[main] tf32 launches on the 'default' paths: %s" % json.dumps(tf32_launches))
+        rows = timed("kernels", phase_kernels, kt, block_ell, bk, paths, by_path, peaks,
+                     tf32_launches)
     log("[done] %.1f s" % (time.perf_counter() - t0))
     print(smi)
     if rows is not None:

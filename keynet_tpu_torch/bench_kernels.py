@@ -33,7 +33,8 @@ host's time to enqueue one call (``enqueue_us``): where it is close to the
 per-call time, the host, not the kernel, set the pace.
 
 A row prints ms/call, µs per non-zero slot, GB/s over the least bytes (each
-distinct tile, x and the output once: the bound's bytes) and over the
+distinct tile, each x block a slot reads and the output once: the bound's
+bytes) and over the
 slot-equivalent bytes (one tile and one x block per slot, the JAX script's
 figure of merit), TFLOP/s, the error, the bound from the card's data-sheet
 rates (``PEAKS``) and the entry's launches in that row.  On the CPU
@@ -52,11 +53,12 @@ from .globals import resolve_device
 from .ops import block_ell
 
 # Data-sheet rates (dense, no sparsity) at the full power limit:
-# f32 outside the tensor cores, bf16 in them, device memory bandwidth.
-PEAKS = {"H100 SXM": dict(f32=67e12, bf16=989e12, bw=3.35e12),
-         "H100 PCIe": dict(f32=51e12, bf16=756e12, bw=2.0e12),
-         "H100 NVL": dict(f32=60e12, bf16=835e12, bw=3.9e12),
-         "H200": dict(f32=67e12, bf16=989e12, bw=4.8e12)}
+# f32 outside the tensor cores, bf16 and TF32 in them, device memory
+# bandwidth.
+PEAKS = {"H100 SXM": dict(f32=67e12, bf16=989e12, tf32=494.7e12, bw=3.35e12),
+         "H100 PCIe": dict(f32=51e12, bf16=756e12, tf32=378e12, bw=2.0e12),
+         "H100 NVL": dict(f32=60e12, bf16=835e12, tf32=417.5e12, bw=3.9e12),
+         "H200": dict(f32=67e12, bf16=989e12, tf32=494.7e12, bw=4.8e12)}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"f32": 1e-5, "bf16": 1e-4}
 
@@ -77,21 +79,25 @@ def card():
     return r.stdout.strip().splitlines()[0]
 
 
-def work(tile_ids, TM, TN, n_cols, n_out, B, itemsize, peaks):
+def work(tile_ids, col_blk, TM, TN, n_out, B, itemsize, peaks, rate=None):
     """What one apply to B rows needs: FLOPs (2·TM·TN per non-zero slot and
-    row), least bytes (each distinct non-zero tile, x in the tile dtype and
-    the f32 output once, tile_ids and col_blk), slot-equivalent bytes, and
-    the bound: the larger of FLOPs over the peak for the tile dtype and
-    least bytes over the memory rate."""
+    row), least bytes (each distinct non-zero tile and each x block a
+    non-zero slot reads once, x in the tile dtype, the f32 output once,
+    tile_ids and col_blk), slot-equivalent bytes, and the bound: the larger
+    of FLOPs over the peak for the product (``rate``, a key of PEAKS' rows;
+    by default "f32" for f32 tiles, "bf16" for bf16) and least bytes over
+    the memory rate."""
     nz = tile_ids > 0
     slots = int(nz.sum())
     uniq = int(torch.unique(tile_ids[nz]).numel())
+    x_blocks = int(torch.unique(col_blk[nz]).numel())
     flops = 2.0 * TM * TN * B * slots
-    nbytes = (uniq * TM * TN * itemsize + B * n_cols * itemsize + B * n_out * 4
+    nbytes = (uniq * TM * TN * itemsize + B * x_blocks * TN * itemsize + B * n_out * 4
               + 2 * tile_ids.numel() * 4)
-    peak = peaks["f32"] if itemsize == 4 else peaks["bf16"]
+    peak = peaks[rate or ("f32" if itemsize == 4 else "bf16")]
     t_ops, t_bytes = flops / peak, nbytes / peaks["bw"]
-    return dict(nonzero_slots=slots, unique_tiles=uniq, flops=flops, bytes=nbytes,
+    return dict(nonzero_slots=slots, unique_tiles=uniq, x_blocks=x_blocks, flops=flops,
+                bytes=nbytes,
                 slot_bytes=slots * (TM * TN + B * TN) * itemsize,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -140,7 +146,7 @@ def _row(bench, dt, variant, entry, kw, tiles, ids, cols, x0, peaks, trials, tar
         raise AssertionError("%s-%s-%s B=%d: max|diff| %.3g vs the plain version "
                              "(scale %.3g)" % (bench, dt, variant, B, err, scale))
     del y, ref
-    w = work(ids, TM, TN, x0.shape[1], n_out, B, tiles.element_size(), peaks)
+    w = work(ids, cols, TM, TN, n_out, B, tiles.element_size(), peaks)
     row = dict(bench=bench, dtype=dt, variant=variant, entry=name, B=B,
                max_abs_err=err, scale=scale, **w)
     ms = None

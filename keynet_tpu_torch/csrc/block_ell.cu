@@ -41,6 +41,14 @@
 // where the FMA pipes give 67, so its bound is 15x lower wherever operations
 // bound the FMA version (AllConvNet conv1 at B = 1024: 3.445 ms of f32
 // FMAs, 0.233 ms at the bf16 rate).
+//
+// f32 tiles under PRECISION='default'.  The Pallas kernels' f32 dot then
+// runs one reduced-precision pass (Precision.DEFAULT, :107-110, :301-304,
+// :403-406); here the same wgmma walk takes the f32 panels as tf32 x tf32
+// products (m64nBTk8, four a 128-byte step; the tensor cores drop each
+// operand's 13 low mantissa bits, block_ell_wgmma.cuh).  Its ceiling is the
+// data sheet's 494.7 TFLOP/s dense TF32, 7.4x the FMA pipes'; bytes are
+// the f32 ones.  'highest' and 'high' keep the FMA core below, unchanged.
 
 #include "block_ell_core.cuh"
 #include "block_ell_wgmma.cuh"
@@ -104,10 +112,11 @@ __global__ void __launch_bounds__(C::NT, 1) slot_walk_kernel(
   });
 }
 
-// The bf16 instantiation: the same walk on tensor cores (block_ell_wgmma.cuh).
+// The tensor-core instantiations, bf16 and tf32: the same walk on wgmma
+// (block_ell_wgmma.cuh).
 template <class C>
 __global__ void __launch_bounds__(C::NT, 2) slot_walk_wgmma(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ tiles,
+    const typename C::T* __restrict__ x, const typename C::T* __restrict__ tiles,
     const int* __restrict__ tile_ids, const int* __restrict__ col_blk,
     float* __restrict__ out, int B, int n_cols, int n_rb, int KB, int TM,
     int TN, int n_out) {
@@ -133,7 +142,7 @@ __global__ void __launch_bounds__(C::NT, 2) slot_walk_wgmma(
     int nz = 0;
     for (int k = 0; k < KB; ++k) nz += ids[k] > 0;
     const int valid = min(B - b0, C::BT);
-    const __nv_bfloat16* xrow = x + (size_t)b0 * n_cols;
+    const typename C::T* xrow = x + (size_t)b0 * n_cols;
 
     // producer cursor: slot pk (non-zero), column chunk pc of the next step
     int pk = 0, pc = 0;
@@ -142,7 +151,7 @@ __global__ void __launch_bounds__(C::NT, 2) slot_walk_wgmma(
       const int col = pc * C::BK;
       bw::stage_tile<C>(st + C::X_BYTES, tiles + ((size_t)ids[pk] * TM + m0) * TN + col,
                         (size_t)TN, tid);
-      const __nv_bfloat16* xs = xrow + (size_t)cbs[pk] * TN + col;
+      const typename C::T* xs = xrow + (size_t)cbs[pk] * TN + col;
       bw::stage_x<C>(st, xs, [&](int row) -> long long {
         return row < valid ? (long long)row * n_cols : -1;
       }, tid);
@@ -176,10 +185,11 @@ cudaError_t launch(const void* x, const void* tiles, const int* ids,
   });
 }
 
+template <typename T>
 cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const int* cols,
                          float* out, int B, int n_cols, int n_rb, int KB, int TM, int TN,
                          int n_out, int BT, size_t bytes, cudaStream_t stream) {
-  return bw::with_tile(BT, [&](auto c) {
+  return bw::with_tile<T>(BT, [&](auto c) {
     using C = decltype(c);
     if (bytes < C::SMEM) return cudaErrorInvalidValue;
     static size_t allowed = 48 * 1024;
@@ -187,8 +197,8 @@ cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const
     if (err != cudaSuccess) return err;
     const dim3 grid((B + C::BT - 1) / C::BT, (n_out + BM - 1) / BM);
     slot_walk_wgmma<C><<<grid, C::NT, bytes, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(tiles), ids,
-        cols, out, B, n_cols, n_rb, KB, TM, TN, n_out);
+        static_cast<const T*>(x), static_cast<const T*>(tiles), ids, cols, out, B, n_cols,
+        n_rb, KB, TM, TN, n_out);
     return cudaGetLastError();
   });
 }
@@ -198,25 +208,30 @@ cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// x: (B, n_cols) and tiles: (n_uniq, TM, TN) in f32 (bf16 = 0) or bf16
-// (bf16 = 1), both 16-byte aligned; tile_ids/col_blk: (n_rb, KB) int32;
+// x: (B, n_cols) and tiles: (n_uniq, TM, TN), both 16-byte aligned, and the
+// product, as ops/block_ell.py's KIND numbers it: f32 on the IEEE FMA core
+// (kind = 0), bf16 x bf16 on the tensor cores (1), or f32 operands as
+// tf32 x tf32 on the tensor cores (2); tile_ids/col_blk: (n_rb, KB) int32;
 // out: (B, n_out) f32.  TM and TN are multiples of 128; all arrays
 // contiguous.  BT (8, 16, 32, 64 or 128) is the row tile and smem the
 // dynamic shared memory of a block, as ops/block_ell.launch_plan chooses
-// them; fewer bytes than BT's layout needs are refused.  f32 tiles run the
-// FMA core, bf16 tiles the tensor cores.
+// them; fewer bytes than BT's layout needs are refused.
 int block_ell_slot_walk(const void* x, const void* tiles, const void* tile_ids,
                         const void* col_blk, void* out, int B, int n_cols,
-                        int n_rb, int KB, int TM, int TN, int n_out, int bf16,
+                        int n_rb, int KB, int TM, int TN, int n_out, int kind,
                         int BT, int smem, void* stream) {
-  if (TM % BM != 0 || TN % 128 != 0 || B <= 0 || n_out <= 0 || smem <= 0)
+  if (TM % BM != 0 || TN % 128 != 0 || B <= 0 || n_out <= 0 || smem <= 0 || kind < 0 ||
+      kind > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* ids = static_cast<const int*>(tile_ids);
   const int* cols = static_cast<const int*>(col_blk);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16
-      ? launch_wgmma(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, BT, smem, s)
+  const cudaError_t err =
+      kind == 1 ? launch_wgmma<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM,
+                                              TN, n_out, BT, smem, s)
+      : kind == 2 ? launch_wgmma<float>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN,
+                                        n_out, BT, smem, s)
       : launch<float>(x, tiles, ids, cols, o, B, n_cols, n_rb, KB, TM, TN, n_out, BT, smem, s);
   return static_cast<int>(err);
 }

@@ -43,6 +43,12 @@
 // 7.04 ms of f32 FMAs to 0.48 ms at 989 TFLOP/s, beside 0.2 ms for the bytes
 // it must move; what it stages is more, since every block reads its slot's
 // tile panel and gathers its x rows again (L2 serves most of it).
+//
+// f32 tiles under PRECISION='default' run the same wgmma walk as tf32 x tf32
+// products (the Pallas dot at Precision.DEFAULT, :566-569; four m64nBTk8
+// steps a 128-wide slot, 13 low mantissa bits of each operand dropped,
+// block_ell_wgmma.cuh): at conv1_2 and B = 32 the operations bound is
+// 0.95 ms at 494.7 TFLOP/s dense TF32, beside 0.4 ms for its f32 bytes.
 
 #include "block_ell_core.cuh"
 #include "block_ell_wgmma.cuh"
@@ -141,11 +147,11 @@ __global__ void __launch_bounds__(C::NT, 1) periodic_kernel(
   });
 }
 
-// The bf16 instantiation: the same walk on tensor cores (block_ell_wgmma.cuh);
-// the x offsets sit before the 1024-byte-aligned ring.
+// The tensor-core instantiations, bf16 and tf32: the same walk on wgmma
+// (block_ell_wgmma.cuh); the x offsets sit before the 1024-byte-aligned ring.
 template <class C>
 __global__ void __launch_bounds__(C::NT, 2) periodic_wgmma(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ tiles,
+    const typename C::T* __restrict__ x, const typename C::T* __restrict__ tiles,
     const int* __restrict__ tile_ids, const int* __restrict__ col_blk,
     float* __restrict__ out, int B, int n_cols, int KB, int TM, int TN,
     int s, int P, int R) {
@@ -236,10 +242,11 @@ cudaError_t launch(const void* x, const void* tiles, const int* ids,
   });
 }
 
+template <typename T>
 cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const int* cols,
                          float* out, int B, int n_cols, int KB, int TM, int TN, int s, int P,
                          int R, int BT, size_t bytes, cudaStream_t stream) {
-  return bw::with_tile(BT, [&](auto c) {
+  return bw::with_tile<T>(BT, [&](auto c) {
     using C = decltype(c);
     if (bytes < xoff_bytes<C>() + C::SMEM) return cudaErrorInvalidValue;
     static size_t allowed = 48 * 1024;
@@ -248,8 +255,8 @@ cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const
     const long long n_pairs = (long long)R * B;
     const dim3 grid((unsigned)((n_pairs + C::BT - 1) / C::BT), (unsigned)(P * (TM / BM)));
     periodic_wgmma<C><<<grid, C::NT, bytes, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(tiles), ids,
-        cols, out, B, n_cols, KB, TM, TN, s, P, R);
+        static_cast<const T*>(x), static_cast<const T*>(tiles), ids, cols, out, B, n_cols,
+        KB, TM, TN, s, P, R);
     return cudaGetLastError();
   });
 }
@@ -259,27 +266,31 @@ cudaError_t launch_wgmma(const void* x, const void* tiles, const int* ids, const
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// x: (B, n_cols) and tiles: (n_uniq, TM, TN) in f32 (bf16 = 0) or bf16
-// (bf16 = 1), both 16-byte aligned; tile_ids/col_blk: (n_rb, KB) int32 with
-// s + P*R <= n_rb; out: (B, P*R*TM) f32.  TM and TN are multiples of 128;
-// all arrays contiguous.  BT (8, 16, 32, 64 or 128) is the row tile over
-// the R*B (rep, image) pairs and smem the dynamic shared memory of a block,
-// as ops/block_ell.launch_plan chooses them; fewer bytes than BT's layout
-// needs are refused.  f32 tiles run the FMA core, bf16 tiles the tensor
-// cores.
+// x: (B, n_cols) and tiles: (n_uniq, TM, TN), both 16-byte aligned, and the
+// product, as ops/block_ell.py's KIND numbers it: f32 on the IEEE FMA core
+// (kind = 0), bf16 x bf16 on the tensor cores (1), or f32 operands as
+// tf32 x tf32 on the tensor cores (2); tile_ids/col_blk: (n_rb, KB) int32
+// with s + P*R <= n_rb; out: (B, P*R*TM) f32.  TM and TN are multiples of
+// 128; all arrays contiguous.  BT (8, 16, 32, 64 or 128) is the row tile
+// over the R*B (rep, image) pairs and smem the dynamic shared memory of a
+// block, as ops/block_ell.launch_plan chooses them; fewer bytes than BT's
+// layout needs are refused.
 int periodic_block_ell(const void* x, const void* tiles, const void* tile_ids,
                        const void* col_blk, void* out, int B, int n_cols,
-                       int KB, int TM, int TN, int s, int P, int R, int bf16,
+                       int KB, int TM, int TN, int s, int P, int R, int kind,
                        int BT, int smem, void* stream) {
   if (TM % BM != 0 || TN % 128 != 0 || B <= 0 || P <= 0 || R <= 0 || s < 0 || smem <= 0 ||
-      (long long)P * (TM / BM) > 65535)
+      kind < 0 || kind > 2 || (long long)P * (TM / BM) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* ids = static_cast<const int*>(tile_ids);
   const int* cols = static_cast<const int*>(col_blk);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16
-      ? launch_wgmma(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, BT, smem, st)
+  const cudaError_t err =
+      kind == 1 ? launch_wgmma<__nv_bfloat16>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s,
+                                              P, R, BT, smem, st)
+      : kind == 2 ? launch_wgmma<float>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R,
+                                        BT, smem, st)
       : launch<float>(x, tiles, ids, cols, o, B, n_cols, KB, TM, TN, s, P, R, BT, smem, st);
   return static_cast<int>(err);
 }

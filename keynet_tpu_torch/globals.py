@@ -19,7 +19,9 @@ GLOBAL = {
     # materializing
     "STREAM_NNZ": 30_000_000,
     # float32 matmul/conv precision: 'highest' = IEEE f32 everywhere (the
-    # exact-equivalence contract, atol 1e-5); 'high'/'default' allow TF32
+    # exact-equivalence contract, atol 1e-5); 'high'/'default' allow TF32 in
+    # cuBLAS and cuDNN, 'default' also in the Block-ELL kernels
+    # (kernel_precision)
     "PRECISION": "highest",
     # keep freed large buffers on the process heap (see tune_allocator);
     # disable with KEYNET_TPU_MALLOPT=0
@@ -104,6 +106,25 @@ def precision(p=None):
     if conv is not None and hasattr(conv, "fp32_precision"):
         conv.fp32_precision = fp32
     return mode
+
+
+def kernel_precision(tile_dtype=torch.float32):
+    """The product the Block-ELL kernels run for tiles of ``tile_dtype``
+    under GLOBAL['PRECISION'], read at each launch, as keynet_tpu's Pallas
+    wrappers read kernel_precision() (keynet_tpu/globals.py:132-140) and
+    BlockSparseOp._precision (keynet_tpu/ops/operators.py:322-326):
+
+      'bf16'  bf16 tiles in every mode: bf16 x bf16 on the tensor cores;
+      'ieee'  f32 tiles under 'highest' and 'high': IEEE f32 FMAs (keynet_tpu
+              rounds HIGH up to HIGHEST in its kernels);
+      'tf32'  f32 tiles under 'default': TF32 x TF32 on the tensor cores,
+              the format precision('default') gives cuBLAS and cuDNN (the
+              kernels truncate each operand to it: ops.block_ell.round_tf32).
+
+    f32 sums in all three."""
+    if tile_dtype == torch.bfloat16:
+        return "bf16"
+    return "tf32" if GLOBAL["PRECISION"] == "default" else "ieee"
 
 
 def resolve_device(device="cuda"):

@@ -37,16 +37,25 @@ slot with tile id 0 adds nothing.  The periodic entry computes rows
 
 On a CPU tensor each entry computes its plain version (``block_ell_plain``,
 ``periodic_block_ell_plain``); on a CUDA tensor it launches its kernel or
-raises.  ``LAUNCHES[name]`` counts kernel launches only.  The kernels are
+raises.  ``LAUNCHES[name]`` counts kernel launches only, ``TF32_LAUNCHES``
+those of them that ran tf32 products.  The kernels are
 compiled with nvcc at first use into build/kernels/ (one nvcc per source,
 started together) and bound with ctypes.  Every kernel is launched with the
 row tile, shared memory and grid that ``launch_plan`` chooses for it
 (csrc/block_ell_core.cuh); it raises beforehand on a plan the card cannot
-launch.  With bf16 tiles the slot walk and the periodic kernel multiply on
-the tensor cores (csrc/block_ell_wgmma.cuh: bf16 products, f32 sums, as
-the Pallas dot with bf16 tiles); xres and grid, and every f32 launch, run
-the IEEE f32 FMA core.  ``grid_tile_copies`` runs the grid kernel with a
-device counter of the tile copies it issues.
+launch.  The slot walk and the periodic kernel read the product at each
+launch from ``globals.kernel_precision`` (GLOBAL['PRECISION'] and the tile
+dtype), as the Pallas wrappers read ``kernel_precision()`` at call: bf16
+tiles multiply on the tensor cores in every mode (csrc/block_ell_wgmma.cuh:
+bf16 products, f32 sums, as the Pallas dot with bf16 tiles); f32 tiles on
+the IEEE f32 FMA core under 'highest' and 'high', and as tf32 products on
+the tensor cores under 'default' (the Pallas dot at Precision.DEFAULT).
+xres and grid run the FMA core in every mode.  On the CPU every entry keeps
+f32 products in every mode, as torch's CPU matmul and JAX on the CPU do;
+``tf32=True`` makes a plain version round its operands as the tensor cores
+do (``round_tf32``), which is what the card checks hold a tf32 launch
+against.  ``grid_tile_copies`` runs the grid kernel with a device counter
+of the tile copies it issues.
 """
 
 import ctypes
@@ -58,11 +67,12 @@ import threading
 
 import torch
 
-from ..globals import GLOBAL
+from ..globals import GLOBAL, kernel_precision
 
 ENTRIES = ("block_ell_matmul", "block_ell_matmul_xres", "block_ell_matmul_xres2",
            "block_ell_matmul_xresd", "block_ell_matmul_grid", "periodic_block_ell_matvec")
 LAUNCHES = {name: 0 for name in ENTRIES}
+TF32_LAUNCHES = {name: 0 for name in ENTRIES}   # the launches of LAUNCHES that ran tf32
 GROUP = 8  # row-blocks per grid step of the row-padded Pallas entries
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -85,7 +95,7 @@ _GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
 # The row tiles instantiated in csrc/block_ell_core.cuh -> threads a block
 # (16 column threads x BT/8 row groups x k groups), and the ring's depth.
 TILE_THREADS = {8: 64, 16: 128, 32: 128, 64: 128, 128: 256}
-WGMMA_THREADS = 256  # the bf16 slot walk and periodic kernel: two warpgroups
+WGMMA_THREADS = 256  # the tensor-core slot walk and periodic kernel: two warpgroups
 GRID_CONSUMERS = 256  # the grid kernel's consumer threads (it runs one block an SM)
 STAGES = 3
 _PANEL_BYTES = 128  # contraction bytes one ring step stages (32 f32, 64 bf16)
@@ -93,13 +103,19 @@ _BM = 128           # output columns a block owns
 _TMA_ALIGN = 1024   # slack to align swizzled TMA and wgmma panels
 _SMS = 132          # multiprocessors of the H100 SXM (the grid kernel's G)
 KERNELS = ("slot_walk", "periodic", "xres", "grid")
+KERNEL_OF = {"block_ell_matmul": "slot_walk", "block_ell_matmul_xres": "xres",
+             "block_ell_matmul_xres2": "slot_walk", "block_ell_matmul_xresd": "slot_walk",
+             "block_ell_matmul_grid": "grid", "periodic_block_ell_matvec": "periodic"}
+# product() -> the kind number the libraries take (xres and grid: 1 = bf16 tiles)
+KIND = {"ieee": 0, "bf16": 1, "tf32": 2}
+TF32_DROPPED_BITS = 13  # f32 mantissa bits the tensor cores ignore in a tf32 operand
 _LIBS = {}
 _LOCK = threading.Lock()
 
 
 def reset_launches():
     for name in ENTRIES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = TF32_LAUNCHES[name] = 0
 
 
 def route(KB):
@@ -111,11 +127,24 @@ def route(KB):
     return block_ell_matmul_xres2
 
 
+def product(kernel, dtype):
+    """The product a launch of ``kernel`` (one of KERNELS, or an entry of
+    ENTRIES) with ``dtype`` tiles runs under the mode set now: the slot walk
+    and the periodic kernel run kernel_precision(dtype); xres and grid run
+    the FMA core in every mode, "bf16" for bf16 tiles (products of bf16
+    values, exact in f32) and "ieee" for f32 tiles."""
+    kernel = KERNEL_OF.get(kernel, kernel)
+    if kernel in ("slot_walk", "periodic"):
+        return kernel_precision(dtype)
+    return "bf16" if dtype == torch.bfloat16 else "ieee"
+
+
 def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
     """How one of the four kernels is launched (csrc/block_ell_core.cuh):
     ``kernel`` is "slot_walk", "xres" or "grid" (rows = B, cols = n_out) or
     "periodic" (rows = R·B (rep, image) pairs, cols = P·TM).  Returns
-    dict(BT, stages, threads, smem, grid), and for "grid" also G and keep:
+    dict(BT, stages, threads, smem, grid, kind), kind the KIND number of
+    product(kernel, dtype), read now, and for "grid" also G and keep:
 
     - BT, the row tile: the least of TILE_THREADS's tiles that holds
       ``rows``, capped at 128; threads a block from TILE_THREADS, but for
@@ -125,11 +154,12 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
       bytes than the layout needs).  Slot walk and periodic with f32 tiles:
       the cp.async ring, STAGES x (BT + 128) panel rows of 128 + 16 bytes,
       or the k groups' fold if larger, + the periodic kernel's two slots of
-      row offsets.  With bf16 tiles they run on the tensor cores
+      row offsets.  With a "bf16" or "tf32" product they run on the tensor cores
       (csrc/block_ell_wgmma.cuh): WGMMA_THREADS threads at every BT, the
       ring's STAGES x (BT + 128) rows of 128 bytes, 128-byte swizzled, after
       1024 bytes of slack that align it, no fold, + the periodic kernel's
-      row offsets.  xres: 1024 bytes of slack to align the swizzled TMA
+      row offsets (a stage is 128 bytes of contraction either way: 64 bf16
+      or 32 f32 columns).  xres: 1024 bytes of slack to align the swizzled TMA
       stages, STAGES x (BT + 128) rows of 128 bytes and an mbarrier a stage
       (the fold reuses the ring).  grid: the slack, then in keep mode two
       128 x TN tile slices and STAGES x panels of BT x 128 bytes, else (two
@@ -150,6 +180,8 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
     itemsize = torch.empty((), dtype=dtype).element_size()
     if itemsize not in (2, 4):
         raise TypeError("launch_plan: tiles must be float32 or bfloat16, got %s" % dtype)
+    kind = KIND[product(kernel, dtype)]
+    tensor_cores = kernel in ("slot_walk", "periodic") and kind != KIND["ieee"]
     BT = next((t for t in sorted(TILE_THREADS) if t >= rows), max(TILE_THREADS))
     group = 16 * (BT // 8)                    # threads of one k group
     k_groups = TILE_THREADS[BT] // group
@@ -159,8 +191,8 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
     fold = (k_groups - 1) * group * 64 * 4
     x_panel, tile_panel = BT * _PANEL_BYTES, _BM * _PANEL_BYTES
     grid = (-(-rows // BT), -(-cols // _BM))
-    plan = dict(BT=BT, stages=STAGES)
-    if kernel in ("slot_walk", "periodic") and itemsize == 2:
+    plan = dict(BT=BT, stages=STAGES, kind=kind)
+    if tensor_cores:
         threads = WGMMA_THREADS
         smem = _TMA_ALIGN + STAGES * (BT + _BM) * _PANEL_BYTES \
             + (2 * BT * 8 if kernel == "periodic" else 0)
@@ -201,17 +233,34 @@ def out_width(n_rb, TM, n_out_padded, grid=False):
     return min(int(n_out_padded), natural)
 
 
-def block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out_padded):
+def round_tf32(t):
+    """f32 values as the tensor cores read them for a tf32 product: sign,
+    exponent and the upper 10 mantissa bits kept, the TF32_DROPPED_BITS low
+    bits dropped, i.e. truncated toward zero (csrc/block_ell_wgmma.cuh; the
+    rounding pin of the card checks holds the kernels to it)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return (bits & -(1 << TF32_DROPPED_BITS)).view(torch.float32)
+
+
+def _tf32(t, tf32):
+    """``t`` rounded as a tf32 operand where ``tf32`` is set and t is f32
+    (bf16 values are exact in tf32), else ``t``."""
+    return round_tf32(t) if tf32 and t.dtype == torch.float32 else t
+
+
+def block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out_padded, tf32=False):
     """The contract in plain PyTorch: gather + einsum (operators.py:453-458),
     chunked over row-blocks so the gathered tiles and x blocks stay under
     GLOBAL['PERIODIC_X_CHUNK_BYTES'].  bf16 operands are widened to f32
-    after rounding, so products and sums are f32 as in the kernel.  Returns
-    (B, out_width(n_rb, TM, n_out_padded)), the row-padded entries' width."""
+    after rounding, so products and sums are f32 as in the kernel; with
+    ``tf32`` f32 operands are first rounded as the tensor cores round them
+    (round_tf32), the tf32 kernels' products.  Returns (B, out_width(n_rb,
+    TM, n_out_padded)), the row-padded entries' width."""
     B = x_padded.shape[0]
     n_rb, KB = tile_ids.shape
     TM, TN = tiles.shape[1], tiles.shape[2]
     n_out_padded = out_width(n_rb, TM, n_out_padded)
-    xb = x_padded.to(tiles.dtype).reshape(B, -1, TN)
+    xb = _tf32(x_padded.to(tiles.dtype), tf32).reshape(B, -1, TN)
     out = torch.zeros((B, n_out_padded), dtype=torch.float32, device=x_padded.device)
     budget = int(GLOBAL.get("PERIODIC_X_CHUNK_BYTES", 256 << 20))
     rc = max(1, budget // max(1, KB * TN * 4 * (TM + B)))
@@ -220,7 +269,7 @@ def block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out_padded):
     for r0 in range(0, n_rows, rc):
         r1 = min(n_rows, r0 + rc)
         xg = xb[:, cols[r0:r1]].float()              # (B, rc, KB, TN)
-        tg = tiles[ids[r0:r1]].float()               # (rc, KB, TM, TN)
+        tg = _tf32(tiles[ids[r0:r1]], tf32).float()  # (rc, KB, TM, TN)
         y = torch.einsum("brkn,rkmn->brm", xg, tg).reshape(B, -1)
         c1 = min(n_out_padded, r1 * TM)
         out[:, r0 * TM:c1] = y[:, :c1 - r0 * TM]
@@ -228,18 +277,19 @@ def block_ell_plain(x_padded, tiles, tile_ids, col_blk, n_out_padded):
 
 
 def periodic_block_ell_plain(x_padded, tiles, tile_ids, col_blk, s, P, R,
-                             texp=None):
+                             texp=None, tf32=False):
     """The periodic contract in plain PyTorch: the period's tiles
     tiles[tile_ids[s:s+P]] gathered once (or ``texp``, that expansion made
     beforehand) and one einsum per chunk of reps over the x blocks each rep's
     columns pick, the chunk sized so the gathered x blocks stay under
-    GLOBAL['PERIODIC_X_CHUNK_BYTES'] (operators.py:460-482).  Returns
-    (B, P·R·TM) f32, column block j·P+ρ for rep j of period row ρ."""
+    GLOBAL['PERIODIC_X_CHUNK_BYTES'] (operators.py:460-482); ``tf32`` as in
+    block_ell_plain.  Returns (B, P·R·TM) f32, column block j·P+ρ for rep j
+    of period row ρ."""
     B = x_padded.shape[0]
     KB = tile_ids.shape[1]
     TN = tiles.shape[2]
-    xb = x_padded.to(tiles.dtype).reshape(B, -1, TN)
-    T = (texp if texp is not None else tiles[tile_ids[s:s + P].long()]).float()
+    xb = _tf32(x_padded.to(tiles.dtype), tf32).reshape(B, -1, TN)
+    T = _tf32(texp if texp is not None else tiles[tile_ids[s:s + P].long()], tf32).float()
     cols = col_blk[s:s + P * R].long().reshape(R, P, KB)
     budget = int(GLOBAL.get("PERIODIC_X_CHUNK_BYTES", 256 << 20))
     rc = max(1, min(R, budget // max(1, B * P * KB * TN * tiles.element_size())))
@@ -371,13 +421,14 @@ def _operands(name, x_padded, tiles, tile_ids, col_blk):
     return ops
 
 
-def _launched(name, lib_name, err):
+def _launched(name, lib_name, err, kind):
     """Raise on a refused launch (err = cudaGetLastError() after it), else
-    count it."""
+    count it (and, for a tf32 ``kind``, count it as tf32)."""
     if err != 0:
         msg = getattr(_LIBS[lib_name], lib_name + "_error_string")(err).decode()
         raise RuntimeError("%s: kernel launch failed: %s" % (name, msg))
     LAUNCHES[name] += 1
+    TF32_LAUNCHES[name] += kind == KIND["tf32"]
 
 
 def _slot_walk(name, lib_name, x_padded, tiles, tile_ids, col_blk, n_out_padded,
@@ -397,7 +448,7 @@ def _slot_walk(name, lib_name, x_padded, tiles, tile_ids, col_blk, n_out_padded,
     if B == 0 or n_out == 0:
         return out
     plan = launch_plan(B, n_out, TM, TN, tiles.dtype, kernel)
-    ints = [B, n_cols, n_rb, KB, TM, TN, n_out, int(tiles.dtype == torch.bfloat16)]
+    ints = [B, n_cols, n_rb, KB, TM, TN, n_out, plan["kind"]]
     ints += ([] if kernel == "slot_walk" else [n_uniq]) + [plan["BT"], plan["smem"]]
     tail = []
     if kernel == "grid":
@@ -405,7 +456,7 @@ def _slot_walk(name, lib_name, x_padded, tiles, tile_ids, col_blk, n_out_padded,
         tail = [None if copies is None else copies.data_ptr()]
     _launched(name, lib_name, getattr(_lib(lib_name), _LAUNCH_FN[lib_name][0])(
         x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(), out.data_ptr(),
-        *ints, *tail, torch.cuda.current_stream(x.device).cuda_stream))
+        *ints, *tail, torch.cuda.current_stream(x.device).cuda_stream), plan["kind"])
     return out
 
 
@@ -483,7 +534,6 @@ def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):
     plan = launch_plan(R * B, P * TM, TM, TN, tiles.dtype, "periodic")
     _launched(name, "periodic_block_ell", _lib("periodic_block_ell").periodic_block_ell(
         x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(),
-        out.data_ptr(), B, n_cols, KB, TM, TN, s, P, R,
-        int(tiles.dtype == torch.bfloat16), plan["BT"], plan["smem"],
-        torch.cuda.current_stream(x.device).cuda_stream))
+        out.data_ptr(), B, n_cols, KB, TM, TN, s, P, R, plan["kind"], plan["BT"], plan["smem"],
+        torch.cuda.current_stream(x.device).cuda_stream), plan["kind"])
     return out

@@ -55,11 +55,13 @@ def test_cli_raises_without_card():
 
 def test_work_counts_distinct_tiles_and_bound():
     ids = torch.tensor([[1, 2, 0], [2, 2, 3]], dtype=torch.int32)
-    w = bk.work(ids, 128, 128, n_cols=3 * 128, n_out=2 * 128, B=4, itemsize=4,
+    # x block 2 is read only through the id-0 slot: it does not count
+    cols = torch.tensor([[0, 1, 2], [1, 1, 0]], dtype=torch.int32)
+    w = bk.work(ids, cols, 128, 128, n_out=2 * 128, B=4, itemsize=4,
                 peaks=bk.PEAKS["H100 SXM"])
-    assert w["nonzero_slots"] == 5 and w["unique_tiles"] == 3
+    assert w["nonzero_slots"] == 5 and w["unique_tiles"] == 3 and w["x_blocks"] == 2
     assert w["flops"] == 2.0 * 128 * 128 * 4 * 5
-    assert w["bytes"] == 3 * 128 * 128 * 4 + 4 * 384 * 4 + 4 * 256 * 4 + 2 * 6 * 4
+    assert w["bytes"] == 3 * 128 * 128 * 4 + 4 * 256 * 4 + 4 * 256 * 4 + 2 * 6 * 4
     assert w["slot_bytes"] == 5 * (128 * 128 + 4 * 128) * 4
     assert w["bound_by"] == "bytes"
     assert w["bound_ms"] == pytest.approx(w["bytes"] / 3.35e12 * 1e3)

@@ -45,17 +45,18 @@ ORTH_GATES = {"DENSE_MAX_BYTES": 1 << 20, "ELL_MAX_K": 32, "STREAM_NNZ": 1000,
 
 
 class _Globals:
-    """``keys`` and TILE_DTYPE='bfloat16' in both packages' GLOBAL, restored
-    on exit."""
+    """``keys`` in both packages' GLOBAL, restored on exit, and the port's
+    torch TF32 flags from PRECISION on entry and exit."""
 
-    def __init__(self, keys):
-        self.keys = dict(keys, TILE_DTYPE="bfloat16")
+    def __init__(self, keys=(), **more):
+        self.keys = dict(keys, **more)
 
     def __enter__(self):
         self.saved = [(G, {k: G.get(k) for k in self.keys})
                       for G in (kj.globals.GLOBAL, kt.globals.GLOBAL)]
         for G, _ in self.saved:
             G.update(self.keys)
+        kt.globals.precision()
 
     def __exit__(self, *exc):
         for G, old in self.saved:
@@ -64,6 +65,7 @@ class _Globals:
                     G.pop(k, None)
                 else:
                     G[k] = v
+        kt.globals.precision()
 
 
 def _close(a, b, tol):
@@ -118,7 +120,7 @@ def _vgg_narrow(m):
 
 @pytest.fixture(scope="module")
 def orth():
-    with _Globals(ORTH_GATES):
+    with _Globals(ORTH_GATES, TILE_DTYPE="bfloat16"):
         nj, nt = _vgg_narrow(kj.models), _vgg_narrow(kt.models)
         sj, knj = kj.Keynet((3, 56, 56), nj, **ORTH)
         st, knt = kt.Keynet((3, 56, 56), nt, device="cpu", **ORTH)
@@ -194,7 +196,7 @@ def test_orth_forward_matches_jax(orth, B):
 
 @pytest.fixture(scope="module")
 def stoch():
-    with _Globals(GATES):
+    with _Globals(GATES, TILE_DTYPE="bfloat16"):
         nj, nt = _prefix(kj.models), _prefix(kt.models)
         sj, knj = kj.Keynet(SHAPE, nj, seed=0, **RECIPE)
         st, knt = kt.Keynet(SHAPE, nt, seed=0, device="cpu", **RECIPE)

@@ -238,27 +238,126 @@ def test_tensor_core_kernels_match_plain_on_card(B):
         _close(y, block_ell.periodic_block_ell_plain(x_zero, t, ids_d, cols_d, s, P, R), 1e-4)
 
 
-# --------------------------------------------------- keyed nets on the card
-
 class _Globals:
-    """Set keynet_tpu_torch GLOBAL keys, restored on exit."""
+    """Set keynet_tpu_torch GLOBAL keys, restored on exit, and torch's TF32
+    flags from PRECISION on entry and exit (globals.precision)."""
 
     def __init__(self, **keys):
         self.keys = keys
 
     def __enter__(self):
-        from keynet_tpu_torch.globals import GLOBAL
-        self.saved = {k: GLOBAL.get(k) for k in self.keys}
-        GLOBAL.update(self.keys)
+        from keynet_tpu_torch import globals as G
+        self.saved = {k: G.GLOBAL.get(k) for k in self.keys}
+        G.GLOBAL.update(self.keys)
+        G.precision()
 
     def __exit__(self, *exc):
-        from keynet_tpu_torch.globals import GLOBAL
+        from keynet_tpu_torch import globals as G
         for k, v in self.saved.items():
             if v is None:
-                GLOBAL.pop(k, None)
+                G.GLOBAL.pop(k, None)
             else:
-                GLOBAL[k] = v
+                G.GLOBAL[k] = v
+        G.precision()
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 33, 130])
+def test_tf32_kernels_match_plain_on_card(B):
+    """f32 tiles under PRECISION='default' run the slot walk and the
+    periodic kernel as tf32 products on the tensor cores: each against its
+    plain version with tf32=True (the same rounding; only the sum order
+    differs) within 1e-4*max(1, scale), at TM = 256 and TN = 128 or 256 and
+    at 128 x 128, with output columns past the row-blocks (padding), id-0
+    slots, an all-zero row and period row, every launch counted as tf32;
+    then id-0 slots that point at an all-inf x block add nothing.  xres and
+    grid stay on the IEEE FMA core (1e-5 against tf32=False).  The plain
+    versions run under 'highest': under 'default' their einsum on the card
+    would take cuBLAS's TF32 too."""
+    _needs_card()
+    rng = np.random.default_rng(70 + B)
+    s, P, R, KB, n_uniq, n_cb = 1, 3, 4, 7, 9, 8
+    for tm, tn in ((256, 128), (256, 256), (128, 128)):
+        n_rb = s + P * R + 2
+        tiles = rng.standard_normal((n_uniq, tm, tn)).astype(np.float32)
+        tiles[0] = 0.0
+        ids = rng.integers(0, n_uniq, size=(n_rb, KB)).astype(np.int32)
+        ids[s + 1] = 0                          # an all-zero period row
+        ids[-1] = 0                             # an all-zero row
+        for j in range(1, R):
+            ids[s + j * P:s + (j + 1) * P] = ids[s:s + P]
+        cols = rng.integers(0, n_cb - 1, size=(n_rb, KB)).astype(np.int32)
+        t, ids_d, cols_d, xd = (torch.from_numpy(a).cuda() for a in (
+            tiles, ids, cols, rng.standard_normal((B, n_cb * tn)).astype(np.float32)))
+        n_out = n_rb * tm + 128                 # columns past the row-blocks
+        refs = {tf32: block_ell.block_ell_plain(xd, t, ids_d, cols_d, n_out, tf32=tf32)
+                for tf32 in (False, True)}
+        block_ell.reset_launches()
+        for fn, kw in SLOT_WALK:
+            with _Globals(PRECISION="default"):
+                y = fn(xd, t, ids_d, cols_d, n_out, **kw)
+            torch.cuda.synchronize()
+            tf32 = fn.__name__ not in ("block_ell_matmul_xres", "block_ell_matmul_grid")
+            _close(y, refs[tf32][:, :y.shape[1]], 1e-4 if tf32 else 1e-5)
+        with _Globals(PRECISION="default"):
+            y = block_ell.periodic_block_ell_matvec(xd, t, ids_d, cols_d, s, P, R)
+        torch.cuda.synchronize()
+        _close(y, block_ell.periodic_block_ell_plain(xd, t, ids_d, cols_d, s, P, R, tf32=True),
+               1e-4)
+        assert block_ell.TF32_LAUNCHES == dict(
+            block_ell.LAUNCHES, block_ell_matmul_xres=0, block_ell_matmul_grid=0)
+        assert block_ell.TF32_LAUNCHES["periodic_block_ell_matvec"] == 1
+        # every row's first slot: id 0 on the last, all-inf x block
+        ids_d[:, 0], cols_d[:, 0] = 0, n_cb - 1
+        x_zero = xd.clone()
+        x_zero[:, (n_cb - 1) * tn:] = 0.0
+        xd[:, (n_cb - 1) * tn:] = float("inf")
+        ref = block_ell.block_ell_plain(x_zero, t, ids_d, cols_d, n_out, tf32=True)
+        for fn, kw in SLOT_WALK[:4]:
+            with _Globals(PRECISION="default"):
+                y = fn(xd, t, ids_d, cols_d, n_out, **kw)
+            assert bool(torch.isfinite(y).all())
+            _close(y, ref[:, :y.shape[1]], 1e-4)
+        with _Globals(PRECISION="default"):
+            y = block_ell.periodic_block_ell_matvec(xd, t, ids_d, cols_d, s, P, R)
+        assert bool(torch.isfinite(y).all())
+        _close(y, block_ell.periodic_block_ell_plain(x_zero, t, ids_d, cols_d, s, P, R,
+                                                     tf32=True), 1e-4)
+
+
+@pytest.mark.cuda
+def test_tf32_rounding_pin_on_card():
+    """The tensor cores truncate an f32 operand of a tf32 product (13 low
+    mantissa bits dropped), as round_tf32 models it: on a diagonal tile, one
+    non-zero product an output, the slot walk's and the periodic kernel's
+    outputs equal round_tf32(x) * round_tf32(d) bit for bit, in x and in
+    the tile, and round to nearest would give other bits."""
+    _needs_card()
+    low = np.array([0x0FFF, 0x1000, 0x1001, 0x1FFF, 0x3000, 0x0001], np.uint32)
+    bits = np.concatenate([0x3F800000 + low, 0xBF800000 + low, 0x41000000 + low])
+    vals = bits.view(np.float32)
+    n = len(vals)
+    x = np.ones((1, 128), np.float32)
+    d = np.ones(128, np.float32)
+    x[0, :n] = vals                         # x carries the bits, then the tile
+    d[64:64 + n] = vals
+    r32 = lambda a: block_ell.round_tf32(torch.from_numpy(a)).numpy()
+    want = (r32(x) * r32(d)[None, :]).view(np.uint32)
+    nearest = ((bits + 0x1000) & ~np.uint32(0x1FFF)).view(np.float32)
+    assert not np.array_equal(r32(vals), nearest)
+    tiles = torch.zeros((2, 128, 128), dtype=torch.float32, device="cuda")
+    tiles[1] = torch.from_numpy(np.diag(d))
+    ids = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    cols = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    with _Globals(PRECISION="default"):
+        ys = [block_ell.block_ell_matmul_xresd(xd, tiles, ids, cols, 128),
+              block_ell.periodic_block_ell_matvec(xd, tiles, ids, cols, 0, 1, 1)]
+    for y in ys:
+        assert np.array_equal(y.cpu().numpy()[:, :128].view(np.uint32), want)
+
+
+# --------------------------------------------------- keyed nets on the card
 
 def _small_tile_keynet(kt, t, device):
     """Keynet(tileshape=(t, t)) on a 3x32x32 net whose conv2 (and at t = 4
@@ -456,10 +555,31 @@ def test_tp_sharded_block_ell_on_card():
     blocks = rng.standard_normal((8, 128, 128)).astype(np.float32)
     x = rng.standard_normal((4, 1024)).astype(np.float32)
     want = (scipy.sparse.block_diag(list(blocks), format="csr") @ x.T).T
-    for y, launches in launch(ranks.card_block_ell, 2, args=(blocks, x), backend="gloo",
-                              deadline=300):
+    for y, launches, _ in launch(ranks.card_block_ell, 2, args=(blocks, x), backend="gloo",
+                                 deadline=300):
         assert launches["block_ell_matmul_xres2"] >= 1
         assert float(np.abs(y - want).max()) <= 1e-5 * max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+def test_tp_sharded_block_ell_default_on_card():
+    """The tp-sharded block-diagonal of the test above under
+    PRECISION='default': every rank's slot walk runs tf32 products (each
+    launch counted as tf32), and the result equals the product of the
+    tf32-rounded blocks and x (round_tf32) within 1e-4*max(1, scale)."""
+    _needs_card()
+    import scipy.sparse
+    import torch_parallel_ranks as ranks
+    from keynet_tpu_torch.parallel import launch
+    rng = np.random.default_rng(0)
+    blocks = rng.standard_normal((8, 128, 128)).astype(np.float32)
+    x = rng.standard_normal((4, 1024)).astype(np.float32)
+    r32 = lambda a: block_ell.round_tf32(torch.from_numpy(a)).numpy()
+    want = (scipy.sparse.block_diag(list(r32(blocks)), format="csr") @ r32(x).T).T
+    for y, launches, tf32 in launch(ranks.card_block_ell, 2, args=(blocks, x, "default"),
+                                    backend="gloo", deadline=300):
+        assert tf32["block_ell_matmul_xres2"] == launches["block_ell_matmul_xres2"] >= 1
+        assert float(np.abs(y - want).max()) <= 1e-4 * max(1.0, float(np.abs(want).max()))
 
 
 @pytest.mark.cuda

@@ -244,16 +244,18 @@ def rank_checks(rank, world, shape, inputs):
     return out
 
 
-def card_block_ell(rank, world, blocks, x):
+def card_block_ell(rank, world, blocks, x, mode="highest"):
     """On the card (ranks sharing cuda:0 over gloo): the 8-block
     block-diagonal tile-row tp-sharded over every rank and applied through
-    the CUDA kernel; returns (y, the kernel launches)."""
+    the CUDA kernel under PRECISION ``mode``; returns (y, the kernel
+    launches, those of them that ran tf32)."""
     import scipy.sparse
     import torch
     import keynet_tpu_torch as kt
     from keynet_tpu_torch.ops import block_ell
     from keynet_tpu_torch.parallel import sharding as S
     torch.cuda.set_device(0)
+    kt.globals.precision(mode)
     mesh = S.Mesh((1, world), ("dp", "tp"), device="cuda")
     A = scipy.sparse.block_diag(list(blocks), format="csr")
     op = kt.ops.operators.BlockSparseOp.from_scipy(A, tileshape=(128, 128))
@@ -261,7 +263,7 @@ def card_block_ell(rank, world, blocks, x):
     block_ell.reset_launches()
     y = tpop.apply(torch.from_numpy(x).cuda())
     torch.cuda.synchronize()
-    return y.cpu().numpy(), dict(block_ell.LAUNCHES)
+    return y.cpu().numpy(), dict(block_ell.LAUNCHES), dict(block_ell.TF32_LAUNCHES)
 
 
 def fail_on_last(rank, world):
