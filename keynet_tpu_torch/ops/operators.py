@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..globals import GLOBAL
+from ..profiling import annotate
 
 # Default tile for blocked-sparse keyed matrices.
 DEFAULT_TILE = (128, 128)
@@ -986,7 +987,8 @@ class ChannelBroadcastOp(LinearOp):
         B = x.shape[0]
         p2, p1 = self.inner.shape
         xh = x[:, -1:]
-        yc = self.inner.apply(x[:, :-1].reshape(B * self.C, p1))
+        with annotate("keynet.link/0/%s" % type(self.inner).__name__):
+            yc = self.inner.apply(x[:, :-1].reshape(B * self.C, p1))
         yc = yc.reshape(B, self.C, p2) + xh[:, :, None] * self.bias_sp[None, None, :]
         return torch.cat([yc.reshape(B, -1), xh], dim=1)
 
@@ -1025,8 +1027,9 @@ class ChainedOp(LinearOp):
         return self.ops[0].device
 
     def apply(self, x):
-        for op in self.ops:
-            x = op.apply(x)
+        for j, op in enumerate(self.ops):
+            with annotate("keynet.link/%d/%s" % (j, type(op).__name__)):
+                x = op.apply(x)
         return x
 
     def nnz(self):

@@ -4,13 +4,39 @@ Stopwatch spans and the per-layer accounting report (format, shape, nnz,
 device bytes) as in keynet_tpu; ``trace`` and ``annotate`` sit on
 torch.profiler where keynet_tpu used jax.profiler.  ``device_busy`` reads a
 trace's device share: the part of a traced span during which a kernel or
-copy ran on the card."""
+copy ran on the card.
+
+The program's spans.  ``annotate`` is the one span primitive: while a
+torch.profiler (or autograd profiler) records, it is ``record_function``,
+on the clock of the trace's CUPTI kernel and copy events; otherwise it is a
+shared null context that calls nothing in torch.  No span synchronises or
+puts work on the device.  The serving path opens, per request:
+
+- ``keynet.forward``: the whole of ``KeyedModel.forward``, holding
+  - ``keynet.h2d``: the copy of the cipher batch to the device;
+  - ``keynet.run``: ``KeyedModel.run``, holding one span per stage:
+    ``keynet.layer/<layer>/<OpClass>`` (the op and its fused ReLU) or
+    ``keynet.layer/<layer>/relu``; a ``ChainedOp`` layer holds
+    ``keynet.link/<j>/<OpClass>`` for each link j, in order, and a
+    ``ChannelBroadcastOp`` layer ``keynet.link/0/<OpClass>`` for its inner op;
+  - ``keynet.decrypt``: the output key and the affine reshape.
+
+``load_keynet`` fills ``LOAD_SECONDS`` (host seconds, always on) with its
+two phases, each also a span: ``read`` (``keynet.load.read``: the
+snapshot's members read and inflated) and ``restore``
+(``keynet.load.restore``: the ops, the model and the sensor built from
+them).  PERF.md §3 maps each span and the record to the benchmark metric
+that reads it (``kbench/spans.py`` charges device time to the spans)."""
 
 import contextlib
 import os
 import time
 
 import torch
+
+# host seconds of the last load_keynet's phases: {"read": s, "restore": s}
+LOAD_SECONDS = {}
+_NO_SPAN = contextlib.nullcontext()
 
 
 class Stopwatch:
@@ -78,9 +104,18 @@ def timed_ms(device, fn, *args):
     return out, 1e3 * (time.perf_counter() - t)
 
 
-def annotate(name):
-    """A named span inside a trace."""
-    return torch.profiler.record_function(name)
+def active():
+    """Whether a torch.profiler or autograd profiler is recording."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def annotate(name, on=None):
+    """A named span inside a trace: ``record_function(name)`` while a
+    profiler records, else a shared null context.  ``on`` is the caller's
+    own reading of ``active()``, taken once for many spans."""
+    if on is None:
+        on = active()
+    return torch.autograd.profiler.record_function(name) if on else _NO_SPAN
 
 
 def device_events(prof):

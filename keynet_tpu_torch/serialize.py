@@ -11,13 +11,16 @@ schema (:89-145, :193-232), so a bundle from either package serves in the
 other.
 """
 
+import contextlib
 import json
+import time
 from collections import OrderedDict
 
 import numpy as np
 import scipy.sparse
 import torch
 
+from . import profiling
 from .layer import KeyedLayer
 from .ops.operators import (DenseOp, BlockSparseOp, EllOp, PermutedBlockSparseOp,
                             ChainedOp, RepeatedBlockDiagOp, KroneckerOp, TapSumOp,
@@ -192,30 +195,52 @@ def _op_restore(kind, arrs, meta):
     raise NotImplementedError("op kind %r is not ported to keynet_tpu_torch" % kind)
 
 
-def _csr_restore(prefix, z):
-    return scipy.sparse.csr_matrix(
-        (z[prefix + "_data"], z[prefix + "_indices"], z[prefix + "_indptr"]),
-        shape=tuple(z[prefix + "_shape"]))
+def _csr_members(prefix, z):
+    return [z[prefix + k] for k in ("_data", "_indices", "_indptr", "_shape")]
+
+
+def _csr(data, indices, indptr, shape):
+    return scipy.sparse.csr_matrix((data, indices, indptr), shape=tuple(shape))
+
+
+@contextlib.contextmanager
+def _phase(phase):
+    """The block as part of load_keynet's ``phase``: its host seconds added
+    to profiling.LOAD_SECONDS[phase], inside the span keynet.load.<phase>."""
+    t = time.perf_counter()
+    with profiling.annotate("keynet.load." + phase):
+        yield
+    profiling.LOAD_SECONDS[phase] += time.perf_counter() - t
 
 
 def load_keynet(path, device="cuda"):
     """Restore (sensor_or_None, KeyedModel) from a save_keynet bundle, with
-    the ops on ``device``."""
+    the ops on ``device``.  Fills profiling.LOAD_SECONDS with the host
+    seconds of the two phases: ``read`` (opening the bundle, reading and
+    inflating its members) and ``restore`` (the ops, the model and the
+    sensor built from them)."""
     from .system import KeyedModel, KeyedSensor
 
-    with np.load(path, allow_pickle=False) as z:
-        manifest = json.loads(bytes(z["__manifest__"]).decode())
+    profiling.LOAD_SECONDS.clear()
+    profiling.LOAD_SECONDS.update(read=0.0, restore=0.0)
+    with _phase("read"):
+        z = np.load(path, allow_pickle=False)
+    with z:
+        with _phase("read"):
+            manifest = json.loads(bytes(z["__manifest__"]).decode())
         layers = OrderedDict()
         for entry in manifest["layers"]:
             name = entry["name"]
             if entry["kind"] == "relu":
                 layers[name] = "relu"
                 continue
-            key = "layer_%s" % name
-            arrs = {k.split("__", 1)[1]: z[k] for k in z.files
-                    if k.startswith(key + "__")}
+            key = "layer_%s__" % name
+            with _phase("read"):
+                arrs = {k[len(key):]: z[k] for k in z.files if k.startswith(key)}
+            with _phase("restore"):
+                op = _op_restore(entry["kind"], arrs, entry["meta"])
             kl = KeyedLayer.__new__(KeyedLayer)
-            kl._op = _op_restore(entry["kind"], arrs, entry["meta"])
+            kl._op = op
             kl._relu = entry["relu"]
             kl._repr = entry["repr"]
             kl._layertype = entry["layertype"]
@@ -225,16 +250,18 @@ def load_keynet(path, device="cuda"):
             kl.W = None
             layers[name] = kl
 
-        imagekey = _csr_restore("imagekey", z) if "imagekey_data" in z.files else None
-        embeddingkey = _csr_restore("embeddingkey", z) \
-            if "embeddingkey_data" in z.files else None
+        with _phase("read"):
+            keys = {k: _csr_members(k, z) for k in
+                    ("imagekey", "embeddingkey", "sensor_encrypt", "sensor_decrypt")
+                    if k + "_data" in z.files}
+    with _phase("restore"):
+        csr = {k: _csr(*v) for k, v in keys.items()}
         knet = KeyedModel.from_layers(layers, manifest["outshape"],
-                                      imagekey=imagekey, embeddingkey=embeddingkey,
-                                      device=device)
+                                      imagekey=csr.get("imagekey"),
+                                      embeddingkey=csr.get("embeddingkey"), device=device)
         sensor = None
-        if "sensor_encrypt_data" in z.files:
+        if "sensor_encrypt" in csr:
             sensor = KeyedSensor(tuple(manifest["sensor_inshape"]),
-                                 (_csr_restore("sensor_encrypt", z),
-                                  _csr_restore("sensor_decrypt", z)),
+                                 (csr["sensor_encrypt"], csr["sensor_decrypt"]),
                                  device=device)
     return sensor, knet

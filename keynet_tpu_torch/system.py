@@ -8,6 +8,7 @@ the finished ops move to the entry point's ``device`` once.  ``device``
 defaults to 'cuda' and raises without a card unless 'cpu' is asked for.
 """
 
+import itertools
 from collections import OrderedDict
 
 import numpy as np
@@ -15,6 +16,7 @@ import scipy.sparse
 import torch
 
 from . import fiberbundle
+from .profiling import active as profiler_active, annotate
 from .globals import vprint, precision, resolve_device
 from .util import find_closest_positive_divisor  # noqa: F401  (public re-export)
 from .homogeneous import affine_to_linear, linear_to_affine, mat2gray_key
@@ -215,52 +217,74 @@ class KeyedModel:
         return self._device
 
     def _build(self):
-        """Static plan ('relu' | ('op', fused_relu, name)) and the ops, moved
-        to the device once."""
+        """Static plan ((layer, None) for a ReLU, (layer, fused_relu) for an
+        op) and the ops, moved to the device once."""
         if self._ops is not None:
             return
         stages, ops = [], []
         for name, l in self._layers.items():
             if l == "relu":
-                stages.append("relu")
+                stages.append((name, None))
             else:
-                stages.append(("op", bool(l._relu), name))
+                stages.append((name, bool(l._relu)))
                 ops.append(l.op().to(self._device))
         self._stages = stages
         self._ops = ops
 
-    def run(self, x, ops=None):
+    def _span_names(self, ops):
+        """The span of each stage: keynet.layer/<layer>/<OpClass or relu>."""
+        it = iter(ops)
+        return ["keynet.layer/%s/%s" % (name, "relu" if relu is None
+                                        else type(next(it)).__name__)
+                for name, relu in self._stages]
+
+    def run(self, x, ops=None, spans=None):
         """The keyed forward on an encrypted homogeneous batch already on the
         device: every layer's op with ReLU between layers
         (keynet_tpu/system.py:256-270).  ``ops`` replaces the net's own ops
         one for one, as keynet_tpu's ``_forward(ops, x)`` takes them (the
-        sharded plans of parallel.sharding).  Returns the cipher output."""
+        sharded plans of parallel.sharding).  ``spans``: whether a profiler
+        records (read here when None); each stage then runs in its span.
+        Returns the cipher output."""
         precision()
         self._build()
         ops = self._ops if ops is None else ops
-        i = 0
-        for stage in self._stages:
-            if stage == "relu":
-                x = torch.clamp_min(x, 0.0)
-            else:
-                x = ops[i].apply(x)
-                if stage[1]:
-                    x = torch.clamp_min(x, 0.0)
-                i += 1
+        if spans is None:
+            spans = profiler_active()
+        names = self._span_names(ops) if spans else itertools.repeat(None)
+        with annotate("keynet.run", spans):
+            i = 0
+            for (_, relu), name in zip(self._stages, names):
+                with annotate(name, spans):
+                    if relu is None:
+                        x = torch.clamp_min(x, 0.0)
+                        continue
+                    x = ops[i].apply(x)
+                    if relu:
+                        x = torch.clamp_min(x, 0.0)
+                    i += 1
         return x
+
+    def _h2d(self, img_cipher, spans):
+        with annotate("keynet.h2d", spans):
+            return torch.as_tensor(img_cipher, dtype=torch.float32, device=self._device)
 
     def forward(self, img_cipher, outkey=_DEFAULT_KEY):
         """Run the keynet on an encrypted homogeneous batch (N, D+1) and return
         the decrypted affine output reshaped to (N, *outshape) — or the raw
         cipher embedding when no key is supplied/held (public release)."""
-        y = self.run(torch.as_tensor(img_cipher, dtype=torch.float32,
-                                     device=self._device))
-        key = self._embeddingkey if outkey is _DEFAULT_KEY else outkey
-        if key is not None:
-            y = self.decrypt(y, key)
-        out = linear_to_affine(y, None)
-        C, H, W = self._outshape
-        return out.reshape((-1, C, H, W)) if (H, W) != (1, 1) else out
+        spans = profiler_active()
+        with annotate("keynet.forward", spans):
+            # the copy goes straight into run, which then holds the only
+            # reference: the input is freed once the first op has read it
+            y = self.run(self._h2d(img_cipher, spans), None, spans)
+            with annotate("keynet.decrypt", spans):
+                key = self._embeddingkey if outkey is _DEFAULT_KEY else outkey
+                if key is not None:
+                    y = self.decrypt(y, key)
+                out = linear_to_affine(y, None)
+                C, H, W = self._outshape
+                return out.reshape((-1, C, H, W)) if (H, W) != (1, 1) else out
 
     __call__ = forward
 
