@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..globals import GLOBAL
-from ..profiling import annotate
+from ..profiling import TAPSUM_STACKED, annotate
 
 # Default tile for blocked-sparse keyed matrices.
 DEFAULT_TILE = (128, 128)
@@ -906,42 +906,84 @@ class KroneckerOp(LinearOp):
 
 class TapSumOp(LinearOp):
     """Homogeneous sum-of-Kronecker operator  [[Σ_t K_t ⊗ S_t, b], [0, 1]]
-    with K: (T, C2, C1) channel factors and S: (T, p2, p1) spatial factors;
-    applied as 2·T dense matmuls, one tap at a time so only one
-    (B, C1, p2) temporary is live.
+    with K: (T, C2, C1) channel factors and S: (T, p2, p1) spatial factors.
+
+    Applied per chunk of Bc images as two GEMMs, the batch folded into the
+    rows and the taps stacked into the GEMM dimensions, so the tap sum
+    accumulates inside the second GEMM:
+
+      Z   = X · [S_0; …; S_{T−1}]ᵀ    X: the chunk's cores as (Bc·C1, p1) rows;
+                                      Z: (Bc·C1, T·p2), image b's block a
+                                      (C1·T, p2) matrix with rows (c1, t)
+      Y_b = K_st · Z_b                K_st: (C2, C1·T), K_st[c2, c1·T + t] = K[t, c2, c1]
+
+    Y_b lands in the output's rows directly.  The op holds the channel
+    factor only as K_st; ``K`` is a view of it in the published layout.
     """
-    _tensors = ("K", "S", "bias")
+    _tensors = ("K_st", "S", "bias")
 
     def __init__(self, K, S, bias, nnz=None):
-        self.K = _t(K, torch.float32)
+        K = _t(K, torch.float32)
+        T, C2, C1 = K.shape
+        self.K_st = K.permute(1, 2, 0).reshape(C2, C1 * T).contiguous()
         self.S = _t(S, torch.float32)
         self.bias = _t(bias, torch.float32)
-        n_out = self.K.shape[1] * self.S.shape[1]
-        n_in = self.K.shape[2] * self.S.shape[2]
+        n_out = C2 * self.S.shape[1]
+        n_in = C1 * self.S.shape[2]
         self.shape = (n_out + 1, n_in + 1)
         self._nnz = int(nnz) if nnz is not None else \
-            int(torch.count_nonzero(self.K)) + int(torch.count_nonzero(self.S)) \
+            int(torch.count_nonzero(K)) + int(torch.count_nonzero(self.S)) \
             + int(torch.count_nonzero(self.bias))
+
+    @property
+    def K(self):
+        """The channel factors as published: (T, C2, C1), a view of K_st."""
+        T = self.S.shape[0]
+        C2, C1T = self.K_st.shape
+        return self.K_st.view(C2, C1T // T, T).permute(2, 0, 1)
+
+    def chunks(self, B):
+        """[(b0, b1), ...]: the batch split into the fewest near-equal chunks
+        whose X and Z buffers together hold at most three outputs' floats
+        (two for a single tap).  The link's peak, its output included, then
+        stays within a tap-at-a-time sum's: the running sum, a tap's
+        product and the bias term beside the output (the output and the
+        bias term for a single tap)."""
+        T, p2, p1 = self.S.shape
+        C2, C1T = self.K_st.shape
+        per_image = C1T * p2 + C1T // T * p1
+        budget = (3 if T > 1 else 2) * B * C2 * p2
+        n = _cdiv(B, max(1, budget // per_image))
+        return [(i * B // n, (i + 1) * B // n) for i in range(n)]
 
     def apply(self, x):
         B = x.shape[0]
-        T, C2, C1 = self.K.shape
-        p2, p1 = self.S.shape[1], self.S.shape[2]
-        n_in = C1 * p1
-        xc = x[:, :n_in].reshape(B, C1, p1)
+        T, p2, p1 = self.S.shape
+        C2, C1T = self.K_st.shape
+        C1 = C1T // T
+        n_in, n_out = C1 * p1, C2 * p2
         xh = x[:, n_in:]
-        y = None
-        for t in range(T):
-            yt = torch.matmul(self.K[t], torch.matmul(xc, self.S[t].T))
-            y = yt if y is None else y + yt
-        y = y.reshape(B, C2 * p2) + xh * self.bias[None, :]
-        return torch.cat([y, xh], dim=1)
+        out = x.new_empty((B, n_out + 1))
+        y = out[:, :n_out]
+        S = self.S.reshape(T * p2, p1)
+        chunks = self.chunks(B)
+        for b0, b1 in chunks:
+            n = b1 - b0
+            z = torch.mm(x[b0:b1, :n_in].reshape(n * C1, p1), S.T)
+            torch.bmm(self.K_st.expand(n, C2, C1T), z.view(n, C1T, p2),
+                      out=y[b0:b1].view(n, C2, p2))
+            del z   # before the next chunk's Z is allocated
+        y.addcmul_(xh, self.bias)
+        out[:, n_out:] = xh
+        TAPSUM_STACKED["applies"] += 1
+        TAPSUM_STACKED["chunks"] += len(chunks)
+        return out
 
     def nnz(self):
         return self._nnz
 
     def device_bytes(self):
-        return int(self.K.numel() + self.S.numel() + self.bias.numel()) * 4
+        return int(self.K_st.numel() + self.S.numel() + self.bias.numel()) * 4
 
     def arrays(self):
         return {"K": self.K, "S": self.S, "bias": self.bias}

@@ -26,7 +26,12 @@ two phases, each also a span: ``read`` (``keynet.load.read``: the
 snapshot's members read and inflated) and ``restore``
 (``keynet.load.restore``: the ops, the model and the sensor built from
 them).  PERF.md §3 maps each span and the record to the benchmark metric
-that reads it (``kbench/spans.py`` charges device time to the spans)."""
+that reads it (``kbench/spans.py`` charges device time to the spans).
+
+``TAPSUM_STACKED`` (always on) counts ``TapSumOp.apply`` calls
+(``applies``) and the batch chunks they ran as two stacked GEMMs each
+(``chunks``): a card run reads from it that every TapSum link took that
+route."""
 
 import contextlib
 import os
@@ -36,6 +41,8 @@ import torch
 
 # host seconds of the last load_keynet's phases: {"read": s, "restore": s}
 LOAD_SECONDS = {}
+# TapSumOp.apply calls and the batch chunks they ran: {"applies": n, "chunks": n}
+TAPSUM_STACKED = {"applies": 0, "chunks": 0}
 _NO_SPAN = contextlib.nullcontext()
 
 

@@ -28,9 +28,10 @@ from .ops.operators import (DenseOp, BlockSparseOp, EllOp, PermutedBlockSparseOp
 
 
 def _np(t, int32=False):
-    """A tensor as the numpy array keynet_tpu stores: on the host, integer
-    index arrays as int32 (JAX's default integer width)."""
-    a = t.detach().cpu()
+    """A tensor as the numpy array keynet_tpu stores: on the host, in C
+    order (a view such as TapSumOp.K is written as its contiguous copy),
+    integer index arrays as int32 (JAX's default integer width)."""
+    a = t.detach().cpu().contiguous()
     if int32 and a.dtype == torch.int64:
         a = a.to(torch.int32)
     return a.numpy()

@@ -195,6 +195,41 @@ def test_tapsum_and_chain():
     _close(cj.apply(xj), ct.apply(xt))
 
 
+# (B, T, C1, C2, p1, p2): stride 2 (p2 < p1), C1 != C2, a single tap, one
+# input channel, uneven chunks (Bc < B), B = 1
+TAPSUM_CASES = {"stride2": (3, 9, 4, 4, 16, 4), "c1_ne_c2": (4, 9, 3, 5, 9, 9),
+                "one_tap": (3, 1, 6, 5, 16, 16), "one_in_channel": (2, 4, 1, 3, 9, 9),
+                "chunked": (7, 9, 4, 4, 9, 9), "batch_of_one": (1, 9, 4, 4, 9, 9)}
+
+
+@pytest.mark.parametrize("case", sorted(TAPSUM_CASES))
+def test_tapsum_stacked(case):
+    """The stacked-GEMM apply against keynet_tpu's per-tap TapSumOp; ``K``
+    reads back the published (T, C2, C1) factors; the counter moves by one
+    apply and the chunks it ran."""
+    from keynet_tpu_torch import profiling
+    B, T, C1, C2, p1, p2 = TAPSUM_CASES[case]
+    rng = np.random.default_rng(len(case))
+    K = rng.standard_normal((T, C2, C1)).astype(np.float32)
+    S = rng.standard_normal((T, p2, p1)).astype(np.float32)
+    b = rng.standard_normal(C2 * p2).astype(np.float32)
+    tj = oj.TapSumOp(jnp.asarray(K), jnp.asarray(S), jnp.asarray(b))
+    tt = ot.TapSumOp(K, S, b)
+    assert tt.K.shape == (T, C2, C1) and torch.equal(tt.K, torch.from_numpy(K))
+    assert tt.nnz() == tj.nnz() and tt.device_bytes() == 4 * (K.size + S.size + b.size)
+    chunks = tt.chunks(B)
+    assert chunks[0][0] == 0 and chunks[-1][1] == B
+    assert all(c[1] == d[0] and c[1] > c[0] for c, d in zip(chunks, chunks[1:]))
+    if case == "chunked":
+        sizes = {c1 - c0 for c0, c1 in chunks}
+        assert len(chunks) > 1 and len(sizes) > 1, chunks
+    before = dict(profiling.TAPSUM_STACKED)
+    xj, xt = _x(C1 * p1 + 1, B)
+    _close(tj.apply(xj), tt.apply(xt))
+    assert profiling.TAPSUM_STACKED["applies"] == before["applies"] + 1
+    assert profiling.TAPSUM_STACKED["chunks"] == before["chunks"] + len(chunks)
+
+
 @pytest.mark.parametrize("stride,groups", [(1, 1), (2, 1), (2, 4)])
 def test_direct_conv(stride, groups):
     rng = np.random.default_rng(8)

@@ -196,3 +196,43 @@ def test_port_roundtrip_bitwise(case, bundles):
     s3, knt3 = kt.load_keynet(p, device="cpu")
     assert s3 is None and knt3.imagekey() is None and knt3.embeddingkey() is None
     assert torch.equal(knt3.run(xc), b["knt"].run(xc))
+
+
+@pytest.mark.parametrize("T,C2,C1", [(9, 3, 2), (4, 3, 1)])
+def test_tapsum_chain_roundtrip(tmp_path, T, C2, C1):
+    """save_keynet/load_keynet of a Kronecker-TapSum-Kronecker chain: the
+    snapshot holds K as the (T, C2, C1) C-order array it was built from
+    (also where the op's view of it is Fortran-ordered, C1 = 1), and the
+    restored op gives back the same arrays and the same output, bitwise."""
+    import zipfile
+    from keynet_tpu_torch.layer import KeyedLayer
+    from keynet_tpu_torch.ops import operators as O
+    from keynet_tpu_torch.system import KeyedModel
+    rng = np.random.default_rng(T * 10 + C1)
+    p = 9
+    K = rng.standard_normal((T, C2, C1)).astype(np.float32)
+    S = rng.standard_normal((T, p, p)).astype(np.float32)
+    b = rng.standard_normal(C2 * p).astype(np.float32)
+    kron = [(rng.standard_normal((c, c)).astype(np.float32),
+             rng.standard_normal((p, p)).astype(np.float32),
+             rng.standard_normal(c * p).astype(np.float32)) for c in (C1, C2)]
+    op = O.ChainedOp([O.KroneckerOp(*kron[0]), O.TapSumOp(K, S, b), O.KroneckerOp(*kron[1])])
+    kl = KeyedLayer.__new__(KeyedLayer)
+    kl._op, kl._relu, kl._repr, kl._layertype = op, False, "chain", "conv2d"
+    kl._inshape = kl._outshape = kl._tileshape = kl.W = None
+    kl.shape, kl._nnz = op.shape, op.nnz()
+    path = str(tmp_path / "tapsum.npz")
+    kt.save_keynet(path, KeyedModel.from_layers({"conv": kl}, (C2, 3, 3), device="cpu"))
+    with zipfile.ZipFile(path) as zf, zf.open("layer_conv__c1_K.npy") as f:
+        assert np.lib.format.read_magic(f) == (1, 0)
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+        assert (shape, fortran, dtype) == ((T, C2, C1), False, np.float32)
+        assert f.read() == K.tobytes()
+    _, kn2 = kt.load_keynet(path, device="cpu")
+    op2 = kn2.layers()["conv"].op()
+    ts = op2.ops[1]
+    assert isinstance(ts, O.TapSumOp)
+    for got, want in ((ts.K, K), (ts.S, S), (ts.bias, b)):
+        assert torch.equal(got, torch.from_numpy(want))
+    x = torch.from_numpy(rng.standard_normal((3, op.shape[1])).astype(np.float32))
+    assert torch.equal(op2.apply(x), op.apply(x))
