@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..globals import GLOBAL
-from ..profiling import TAPSUM_STACKED, annotate
+from ..profiling import GROUPED_ROWS, TAPSUM_STACKED, annotate
 
 # Default tile for blocked-sparse keyed matrices.
 DEFAULT_TILE = (128, 128)
@@ -243,11 +243,13 @@ class BlockSparseOp(LinearOp):
         self._sync_texp()
         self._rgroups = None
         self._rgroup_meta = ()
+        self._rgroup_reads = ()
         self._rgroup_inv = None
         if (self.period is None
                 and n_rb * KB * TM * TN * self.tiles.element_size()
                 >= int(GLOBAL.get("ROWGROUP_MIN_SLOT_BYTES", 64 << 20))):
-            plan = find_row_groups(self.tile_ids.cpu().numpy())
+            ids_np = self.tile_ids.cpu().numpy()
+            plan = find_row_groups(ids_np)
             if plan is not None:
                 cb_np = self.col_blk.cpu().numpy()
                 groups, meta = [], []
@@ -261,6 +263,13 @@ class BlockSparseOp(LinearOp):
                 self._rgroup_meta = tuple(meta)
                 self._rgroup_inv = torch.as_tensor(plan["inv_order"],
                                                    dtype=torch.int64)
+                # what the apply has to read, kept in profiling.GROUPED_ROWS:
+                # each bucket's non-zero pattern slots, the distinct non-zero
+                # tiles and the x blocks that non-zero slots read
+                nz = ids_np > 0
+                self._rgroup_reads = (
+                    tuple(int((p > 0).sum()) for _, _, p in plan["buckets"]),
+                    int(np.unique(ids_np[nz]).size), int(np.unique(cb_np[nz]).size))
 
     def to(self, device):
         super().to(device)
@@ -358,7 +367,8 @@ class BlockSparseOp(LinearOp):
             return y[:, :n_out]
 
         if self._rgroups is not None and self._grouped_wins(B, x.device):
-            return self._apply_grouped(x.reshape(B, n_cb, TN))[:, :n_out]
+            with annotate("keynet.grouped"):
+                return self._apply_grouped(x.reshape(B, n_cb, TN))[:, :n_out]
 
         return self._apply_rows(x, 0, n_rb)[:, :n_out]
 
@@ -383,13 +393,15 @@ class BlockSparseOp(LinearOp):
     def _apply_grouped(self, xb):
         """Grouped-row apply: one batched einsum per multiplicity bucket, each
         distinct tile_ids pattern's tiles gathered once; outputs come in
-        bucket order and are un-permuted with a row-block take."""
+        bucket order and are un-permuted with a row-block take.  Each call
+        is recorded in profiling.GROUPED_ROWS."""
         B = xb.shape[0]
         TM, TN = self.tileshape
         budget = int(GLOBAL.get("PERIODIC_X_CHUNK_BYTES", 256 << 20))
         it = self.tiles.element_size()
-        parts = []
-        for (patterns, cols), (m, G) in zip(self._rgroups, self._rgroup_meta):
+        nz_slots, n_tiles, x_blocks = self._rgroup_reads
+        parts, buckets = [], []
+        for (patterns, cols), (m, G), nz in zip(self._rgroups, self._rgroup_meta, nz_slots):
             KB = patterns.shape[1]
             T = self.tiles[patterns].float()              # (G, KB, TM, TN)
             gc = max(1, min(G, budget // max(1, B * m * KB * TN * it)))
@@ -397,9 +409,15 @@ class BlockSparseOp(LinearOp):
                 Xt = xb[:, cols[g0:g0 + gc]].float()      # (B, g, m, KB, TN)
                 y = torch.einsum("bgmkn,gktn->bgmt", Xt, T[g0:g0 + gc])
                 parts.append(y.reshape(B, -1))
+            buckets.append([m, G, KB, TM, TN, it, nz])
         y = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
         n_rb = self.tile_ids.shape[0]
         y = y.reshape(B, n_rb, TM)[:, self._rgroup_inv]
+        GROUPED_ROWS["applies"] += 1
+        GROUPED_ROWS["chunks"] += len(parts)
+        GROUPED_ROWS["cores"]["%dx%d" % self.shape] = dict(
+            last=GROUPED_ROWS["applies"], B=B, x_itemsize=xb.element_size(),
+            tiles=n_tiles, x_blocks=x_blocks, buckets=buckets)
         return y.reshape(B, n_rb * TM)
 
     def _apply_rows(self, x, a, b):
