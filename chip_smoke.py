@@ -701,8 +701,8 @@ def tf32_rounding_pin(kt, block_ell):
 def route_str(op):
     """An op's kind down its chain; a Block-ELL core with its (n_rb, KB),
     unique tiles, tile shape, period, block_ell_route on its device
-    ("kernel" or "einsum") and whether it holds a grouped-row plan (whose
-    einsum it takes where _grouped_wins); an EllOp with its row length K."""
+    ("kernel" or "einsum") and whether it holds a grouped-row plan (which
+    it takes where _grouped_wins); an EllOp with its row length K."""
     from keynet_tpu_torch.ops.operators import (BlockSparseOp, ChainedOp,
                                                 ChannelBroadcastOp, EllOp,
                                                 PermutedBlockSparseOp, block_ell_route)
@@ -747,8 +747,9 @@ def entries_of(block_ell, core, B):
     """The kernel entries one apply of ``core`` to B rows launches on the
     card (BlockSparseOp.apply): none for tiles that block_ell_route sends
     to the einsum, the periodic kernel for the mid-section when the period
-    route is taken, none when the grouped-row einsum is, else the slot walk
-    of route(KB) for the rows outside the period."""
+    route is taken, when the grouped-row apply is the grouped kernel where
+    _grouped_kernel holds and none (its einsum) elsewhere, else the slot
+    walk of route(KB) for the rows outside the period."""
     import torch
     from keynet_tpu_torch.ops.operators import block_ell_route
     n_rb, KB = core.tile_ids.shape
@@ -760,7 +761,8 @@ def entries_of(block_ell, core, B):
             rest = {block_ell.route(KB).__name__} if s or s + P * R < n_rb else set()
             return {"periodic_block_ell_matvec"} | rest
     elif core._rgroups is not None and core._grouped_wins(B, torch.device("cuda")):
-        return set()
+        return {"grouped_block_ell_matmul"} if core._grouped_kernel(torch.device("cuda")) \
+            else set()
     return {block_ell.route(KB).__name__}
 
 
@@ -1379,6 +1381,7 @@ def phase_kernels(kt, block_ell, bk, paths, by_path, peaks, tf32_launches=None):
     head_tail_staged(be, bk, vknet, vxcs[1], name, peaks)
     if "vgg-stochastic" in paths:
         stochastic_kernel_rows(be, bk, *paths["vgg-stochastic"], peaks)
+        grouped_kernel_rows(be, bk, *paths["vgg-stochastic"], peaks)
     if "vgg-bf16" in paths:
         bf16 = bf16_kernel_rows(kt, be, bk, paths, by_path[BF16_PATH], peaks)
         for n in bf16:
@@ -1389,7 +1392,7 @@ def phase_kernels(kt, block_ell, bk, paths, by_path, peaks, tf32_launches=None):
         for n in ("periodic_block_ell_matvec", "block_ell_matmul_xresd"):
             rows[n]["tf32"] = [dict(r, name=n, route="cuda", source=rows[n]["source"],
                                     replaces=rows[n]["replaces"]) for r in tf32[n]]
-    return [rows[n] for n in be.ENTRIES]
+    return [rows[n] for n in be.ENTRIES if n in rows]
 
 
 DEFAULT_PATHS = ("slice 11 (AllConvNet, LeNet 'default')", "slice 11 (VGG orth 'default')")
@@ -1954,7 +1957,8 @@ STOCH_ROUTES = {
 # changes a layer's route at 224: the grouped-row plan's slot bytes
 # (ROWGROUP_MIN_SLOT_BYTES) and _grouped_wins decide how a core applies, not
 # the layer's links (conv1_1's and conv2_1's cores keep the grouped-row
-# einsum at B <= 396 and 520 x itemsize: B = 1, 8, 32 in both dtypes), and
+# apply at B = 1, 8, 32 in both dtypes: the grouped kernel with f32 tiles,
+# the einsum, to B <= 396 and 520 x itemsize, with bf16 ones), and
 # the periodic expansion (PERIODIC_EXPAND_BYTES) is not kept beside
 # kernel-routed tiles on the card.  So the table is STOCH_ROUTES; each core's
 # apply at B = 1, 8, 32 is printed beside it.  tests/test_torch_bf16.py holds
@@ -1973,10 +1977,12 @@ def route_kinds(op):
 
 
 def index_bytes_beyond_count(op):
-    """Bytes of the port's int64 index tensors past what device_bytes()
-    counts for them (keynet_tpu's count, which holds them as int32): the
-    layout permutations of PermutedBlockSparseOp, the grouped-row plan, and
-    the Kronecker gathers (uncounted in both packages)."""
+    """Bytes of the port's index tensors past what device_bytes() counts for
+    them (keynet_tpu's count, which holds them as int32): the layout
+    permutations of PermutedBlockSparseOp, the grouped-row plan (its int32
+    patterns and rows, less the count of keynet_tpu's patterns, column
+    blocks and order: negative), and the Kronecker gathers (uncounted in
+    both packages)."""
     from keynet_tpu_torch.ops.operators import (BlockSparseOp, ChainedOp, ChannelBroadcastOp,
                                                 KroneckerOp, PermutedBlockSparseOp)
     if isinstance(op, ChainedOp):
@@ -1987,8 +1993,9 @@ def index_bytes_beyond_count(op):
         return 4 * (op.perm_in.numel() + op.perm_out_pos.numel()) \
             + index_bytes_beyond_count(op.inner)
     if isinstance(op, BlockSparseOp) and op._rgroups is not None:
-        return 4 * (sum(p.numel() + c.numel() for p, c in op._rgroups)
-                    + op._rgroup_inv.numel())
+        n_rb, KB = op.tile_ids.shape
+        return 4 * sum(t.numel() for t in op._rgroups) \
+            - 4 * (sum(G for _, G in op._rgroup_meta) * KB + n_rb * KB + n_rb)
     if isinstance(op, KroneckerOp):
         return 8 * sum(p.numel() for p in (op.perm_in, op.perm_out) if p is not None)
     return 0
@@ -2121,20 +2128,23 @@ def core_apply(block_ell, core, rows):
     if block_ell_route("cuda", *core.tileshape) != "kernel":
         return "einsum (sub-128 tiles)"
     if core._rgroups is not None and core._grouped_wins(rows, torch.device("cuda")):
-        return "grouped-row einsum"
+        return "grouped-row einsum"     # bf16 tiles or 'default' (_grouped_kernel)
     return "periodic einsum"
 
 
 def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 stochastic"):
     """The kernel at the largest Block-ELL core of the stochastic VGG that
-    routes to one (by non-zero slots, a conv's core), at B=1, 8 and 32:
-    kernel, plain and library times and the bound, as phase_kernels' rows."""
+    routes to the slot walk or the periodic kernel (by non-zero slots, a
+    conv's core), at B=1, 8 and 32: kernel, plain and library times and the
+    bound, as phase_kernels' rows (grouped_kernel_rows times the grouped
+    kernel)."""
     from keynet_tpu_torch.ops.operators import PermutedBlockSparseOp
     convs = {k for k, l in knet.layers().items() if l != "relu"
              and any(isinstance(o, PermutedBlockSparseOp) for o in getattr(l.op(), "ops",
                                                                           [l.op()]))}
     name, core = max(((n, c) for n, c, m in cores if n in convs
-                      and any(entries_of(block_ell, c, B) for B in (1, 8, 32))),
+                      and any(entries_of(block_ell, c, B) - {"grouped_block_ell_matmul"}
+                              for B in (1, 8, 32))),
                      key=lambda nc: int((nc[1].tile_ids > 0).sum()))
     out = {}
     for B in (1, 8, 32):
@@ -2149,6 +2159,63 @@ def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 
     log("[kernels] %s: the largest kernel-routed core is %s's %s, KB %d"
         % (label, name, tuple(core.tile_ids.shape), core.tile_ids.shape[1]))
     return name, out
+
+
+def grouped_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 stochastic"):
+    """The grouped kernel at each core of the net's layers whose grouped-row
+    apply launches it, at B=1, 8 and 32 on the operand the forward feeds it:
+    checked against the grouped einsum (the plain version), and timed with
+    it, the library (torch.bmm a bucket over pre-gathered (G, m·B, KB·TN) x
+    and (G, KB·TN, TM) tiles, gathers untimed) and the slot walk beside the
+    bound (bench_kernels.work); returns {(layer, B): row}."""
+    import torch
+    out = {}
+    for name, core, _ in cores:
+        if name not in knet.layers() or \
+                "grouped_block_ell_matmul" not in entries_of(block_ell, core, 32):
+            continue
+        for B in (1, 8, 32):
+            c, x = core_input(knet, xcs[B], name)
+            TM, TN = c.tileshape
+            n_rb = c.tile_ids.shape[0]
+            xb = x.reshape(B, -1, TN)
+            block_ell.reset_launches()
+            y, launches = c._grouped_launch(xb)
+            ref, _ = c._grouped_einsum(xb)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            where = "%s %s core %s, B=%d" % (label, name, tuple(c.tile_ids.shape), B)
+            check(err, float(ref.abs().max()), TOL_PRODUCT["ieee"],
+                  "grouped kernel at " + where)
+            if launches != block_ell.LAUNCHES["grouped_block_ell_matmul"] or \
+                    not torch.equal(y, c._grouped_launch(xb)[0]):
+                raise AssertionError("grouped kernel at %s: %d launches counted %d, or a "
+                                     "rerun differs" % (where, launches, block_ell.LAUNCHES[
+                                         "grouped_block_ell_matmul"]))
+            del y, ref
+            patterns, rws = (t.long() for t in c._rgroups)
+            ops, p0, r0 = [], 0, 0
+            for m, G in c._rgroup_meta:
+                cols = c.col_blk[rws[r0:r0 + G * m]].long().reshape(G, m, -1)
+                X = xb[:, cols].permute(1, 2, 0, 3, 4).reshape(G, m * B, -1)
+                T = c.tiles[patterns[p0:p0 + G]].permute(0, 1, 3, 2).reshape(G, -1, TM)
+                ops.append((X.contiguous(), T.contiguous()))
+                p0, r0 = p0 + G, r0 + G * m
+            lib_ms, _ = cuda_ms(lambda: [torch.bmm(a, b) for a, b in ops], reps=5)
+            del ops
+            w = bk.work(c.tile_ids, c.col_blk, TM, TN, n_rb * TM, B, c.tiles.element_size(),
+                        peaks)
+            r = dict(max_abs_err=err, launches=launches,
+                     ms=cuda_ms(lambda: c._grouped_launch(xb), reps=10)[0],
+                     plain_ms=cuda_ms(lambda: c._grouped_einsum(xb), reps=5)[0],
+                     library_ms=lib_ms, slot_walk_ms=cuda_ms(
+                         lambda: c._apply_rows(x, 0, n_rb), reps=3)[0],
+                     bound_ms=w["bound_ms"], bound_by=w["bound_by"])
+            r["roofline_pct"] = 100.0 * r["bound_ms"] / r["ms"]
+            log("[kernels] grouped_block_ell_matmul at %s: %s" % (where, json.dumps(r)))
+            out[name, B] = r
+            torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------- slice 8
@@ -2980,8 +3047,11 @@ def main(argv=None):
         what = "slice 10 (VGG stochastic bf16)" if bf16 else "slice 7 (VGG stochastic)"
         paths, launches = timed(what, phase_vgg_stochastic, kt, block_ell, bf16)
         log("[main] launches by path: %s" % json.dumps({what: launches}))
+        label = "VGG16 stochastic bf16" if bf16 else "VGG16 stochastic"
         timed("kernels", stochastic_kernel_rows, block_ell, bk, *paths[args.only], peaks,
-              "VGG16 stochastic bf16" if bf16 else "VGG16 stochastic")
+              label)
+        timed("grouped kernel", grouped_kernel_rows, block_ell, bk, *paths[args.only], peaks,
+              label)
     elif args.only == "parallel":
         log("[main] launches by path: %s" % json.dumps(
             {"slice 8 (parallel)": timed("slice 8 (parallel)", phase_parallel, kt, block_ell)}))

@@ -23,6 +23,13 @@ The sixth launches the periodic kernel (csrc/periodic_block_ell.cu):
 
   periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R)
 
+A seventh has no Pallas counterpart: the grouped-row apply of a core whose
+row-blocks share tile_ids rows (BlockSparseOp's grouped-row plan), each
+pattern's tiles read through its ids (csrc/grouped_block_ell.cu):
+
+  grouped_block_ell_matmul(x_padded, tiles, patterns, rows, col_blk, buckets,
+                           n_out_padded, tables=None)
+
 Contract (pallas_kernels.py:15-16, :96-98): x is (B, n_cb·TN) and is cast
 to the tile dtype; tiles are (n_uniq, TM, TN) f32 or bf16 with tile 0 all
 zeros; tile_ids and col_blk are (n_rb, KB) int32;
@@ -36,10 +43,10 @@ slot with tile id 0 adds nothing.  The periodic entry computes rows
 (pallas_kernels.py:550-595) and returns them as (B, P·R·TM), rep-major.
 
 On a CPU tensor each entry computes its plain version (``block_ell_plain``,
-``periodic_block_ell_plain``); on a CUDA tensor it launches its kernel or
-raises.  ``LAUNCHES[name]`` counts kernel launches only, ``TF32_LAUNCHES``
-those of them that ran tf32 products.  The kernels are
-compiled with nvcc at first use into build/kernels/ (one nvcc per source,
+``periodic_block_ell_plain``, ``grouped_block_ell_plain``); on a CUDA
+tensor it launches its kernel or raises.  ``LAUNCHES[name]`` counts kernel
+launches only, ``TF32_LAUNCHES`` those of them that ran tf32 products.  The
+kernels are compiled with nvcc at first use into build/kernels/ (one nvcc per source,
 started together) and bound with ctypes.  Every kernel is launched with the
 row tile, shared memory and grid that ``launch_plan`` chooses for it
 (csrc/block_ell_core.cuh); it raises beforehand on a plan the card cannot
@@ -50,8 +57,8 @@ tiles multiply on the tensor cores in every mode (csrc/block_ell_wgmma.cuh:
 bf16 products, f32 sums, as the Pallas dot with bf16 tiles); f32 tiles on
 the IEEE f32 FMA core under 'highest' and 'high', and as tf32 products on
 the tensor cores under 'default' (the Pallas dot at Precision.DEFAULT).
-xres and grid run the FMA core in every mode.  On the CPU every entry keeps
-f32 products in every mode, as torch's CPU matmul and JAX on the CPU do;
+xres, grid and the grouped kernel run the FMA core in every mode.  On the
+CPU every entry keeps f32 products in every mode, as torch's CPU matmul and JAX on the CPU do;
 ``tf32=True`` makes a plain version round its operands as the tensor cores
 do (``round_tf32``), which is what the card checks hold a tf32 launch
 against.  ``grid_tile_copies`` runs the grid kernel with a device counter
@@ -70,7 +77,8 @@ import torch
 from ..globals import GLOBAL, kernel_precision
 
 ENTRIES = ("block_ell_matmul", "block_ell_matmul_xres", "block_ell_matmul_xres2",
-           "block_ell_matmul_xresd", "block_ell_matmul_grid", "periodic_block_ell_matvec")
+           "block_ell_matmul_xresd", "block_ell_matmul_grid", "periodic_block_ell_matvec",
+           "grouped_block_ell_matmul")
 LAUNCHES = {name: 0 for name in ENTRIES}
 TF32_LAUNCHES = {name: 0 for name in ENTRIES}   # the launches of LAUNCHES that ran tf32
 GROUP = 8  # row-blocks per grid step of the row-padded Pallas entries
@@ -81,13 +89,15 @@ _CSRC = os.path.join(_ROOT, "keynet_tpu_torch", "csrc")
 SOURCES = {"block_ell": os.path.join(_CSRC, "block_ell.cu"),
            "block_ell_xres": os.path.join(_CSRC, "block_ell_xres.cu"),
            "block_ell_grid": os.path.join(_CSRC, "block_ell_grid.cu"),
-           "periodic_block_ell": os.path.join(_CSRC, "periodic_block_ell.cu")}
-# library name -> (launch function, int arguments, pointer arguments after
-# them: the stream, and for grid first its copy counter)
-_LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 10, 1),
-              "block_ell_xres": ("block_ell_xres", 11, 1),
-              "block_ell_grid": ("block_ell_grid", 13, 2),
-              "periodic_block_ell": ("periodic_block_ell", 11, 1)}
+           "periodic_block_ell": os.path.join(_CSRC, "periodic_block_ell.cu"),
+           "grouped_block_ell": os.path.join(_CSRC, "grouped_block_ell.cu")}
+# library name -> (launch function, pointer arguments, int arguments, pointer
+# arguments after them: the stream, and for grid first its copy counter)
+_LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 5, 10, 1),
+              "block_ell_xres": ("block_ell_xres", 5, 11, 1),
+              "block_ell_grid": ("block_ell_grid", 5, 13, 2),
+              "periodic_block_ell": ("periodic_block_ell", 5, 11, 1),
+              "grouped_block_ell": ("grouped_block_ell", 7, 10, 1)}
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 _SMEM_MAX = 232448  # shared memory one block may use on sm_90
 _GRID_X_MAX, _GRID_Y_MAX = 2 ** 31 - 1, 65535
@@ -102,11 +112,12 @@ _PANEL_BYTES = 128  # contraction bytes one ring step stages (32 f32, 64 bf16)
 _BM = 128           # output columns a block owns
 _TMA_ALIGN = 1024   # slack to align swizzled TMA and wgmma panels
 _SMS = 132          # multiprocessors of the H100 SXM (the grid kernel's G)
-KERNELS = ("slot_walk", "periodic", "xres", "grid")
+KERNELS = ("slot_walk", "periodic", "xres", "grid", "grouped")
 KERNEL_OF = {"block_ell_matmul": "slot_walk", "block_ell_matmul_xres": "xres",
              "block_ell_matmul_xres2": "slot_walk", "block_ell_matmul_xresd": "slot_walk",
-             "block_ell_matmul_grid": "grid", "periodic_block_ell_matvec": "periodic"}
-# product() -> the kind number the libraries take (xres and grid: 1 = bf16 tiles)
+             "block_ell_matmul_grid": "grid", "periodic_block_ell_matvec": "periodic",
+             "grouped_block_ell_matmul": "grouped"}
+# product() -> the kind number the libraries take (xres, grid, grouped: 1 = bf16 tiles)
 KIND = {"ieee": 0, "bf16": 1, "tf32": 2}
 TF32_DROPPED_BITS = 13  # f32 mantissa bits the tensor cores ignore in a tf32 operand
 _LIBS = {}
@@ -130,9 +141,9 @@ def route(KB):
 def product(kernel, dtype):
     """The product a launch of ``kernel`` (one of KERNELS, or an entry of
     ENTRIES) with ``dtype`` tiles runs under the mode set now: the slot walk
-    and the periodic kernel run kernel_precision(dtype); xres and grid run
-    the FMA core in every mode, "bf16" for bf16 tiles (products of bf16
-    values, exact in f32) and "ieee" for f32 tiles."""
+    and the periodic kernel run kernel_precision(dtype); xres, grid and the
+    grouped kernel run the FMA core in every mode, "bf16" for bf16 tiles
+    (products of bf16 values, exact in f32) and "ieee" for f32 tiles."""
     kernel = KERNEL_OF.get(kernel, kernel)
     if kernel in ("slot_walk", "periodic"):
         return kernel_precision(dtype)
@@ -140,9 +151,10 @@ def product(kernel, dtype):
 
 
 def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
-    """How one of the four kernels is launched (csrc/block_ell_core.cuh):
-    ``kernel`` is "slot_walk", "xres" or "grid" (rows = B, cols = n_out) or
-    "periodic" (rows = R·B (rep, image) pairs, cols = P·TM).  Returns
+    """How one of the five kernels is launched (csrc/block_ell_core.cuh):
+    ``kernel`` is "slot_walk", "xres" or "grid" (rows = B, cols = n_out),
+    "periodic" (rows = R·B (rep, image) pairs, cols = P·TM) or "grouped"
+    (rows = m·B (row, image) pairs of one group, cols = TM).  Returns
     dict(BT, stages, threads, smem, grid, kind), kind the KIND number of
     product(kernel, dtype), read now, and for "grid" also G and keep:
 
@@ -151,10 +163,11 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
       grid k groups (at most 8) up to GRID_CONSUMERS consumer threads plus
       its producer, a warp beside 128 consumers, a warpgroup beside 256;
     - smem, the dynamic shared memory of a block (the launch refuses fewer
-      bytes than the layout needs).  Slot walk and periodic with f32 tiles:
-      the cp.async ring, STAGES x (BT + 128) panel rows of 128 + 16 bytes,
-      or the k groups' fold if larger, + the periodic kernel's two slots of
-      row offsets.  With a "bf16" or "tf32" product they run on the tensor cores
+      bytes than the layout needs).  Slot walk, periodic and grouped on
+      the FMA core: the cp.async ring, STAGES x (BT + 128) panel rows of
+      128 + 16 bytes, or the k groups' fold if larger, + the periodic and
+      grouped kernels' two slots of row offsets.  With a "bf16" or "tf32"
+      product the slot walk and periodic kernel run on the tensor cores
       (csrc/block_ell_wgmma.cuh): WGMMA_THREADS threads at every BT, the
       ring's STAGES x (BT + 128) rows of 128 bytes, 128-byte swizzled, after
       1024 bytes of slack that align it, no fold, + the periodic kernel's
@@ -165,8 +178,9 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
       128 x TN tile slices and STAGES x panels of BT x 128 bytes, else (two
       slices do not fit) STAGES stages as in xres; then the fold and
       2·STAGES + 4 mbarriers;
-    - grid: (ceil(rows / BT), ceil(cols / 128)); for "grid" the y extent is
-      ceil(n_rows / G) runs of G row-blocks x TM / 128 chunks, n_rows =
+    - grid: (ceil(rows / BT), ceil(cols / 128)), for "grouped" that of one
+      group (grouped_tables lays a launch's groups out on x); for "grid"
+      the y extent is ceil(n_rows / G) runs of G row-blocks x TM / 128 chunks, n_rows =
       ceil(cols / TM), and G is the largest run that still gives at least
       two blocks for each of the card's _SMS multiprocessors (1 where even
       G = 1 gives fewer).
@@ -196,9 +210,9 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
         threads = WGMMA_THREADS
         smem = _TMA_ALIGN + STAGES * (BT + _BM) * _PANEL_BYTES \
             + (2 * BT * 8 if kernel == "periodic" else 0)
-    elif kernel in ("slot_walk", "periodic"):
+    elif kernel in ("slot_walk", "periodic", "grouped"):
         ring = STAGES * (BT + _BM) * (_PANEL_BYTES + 16)
-        smem = max(ring, fold) + (2 * BT * 8 if kernel == "periodic" else 0)
+        smem = max(ring, fold) + (2 * BT * 8 if kernel != "slot_walk" else 0)
     elif kernel == "xres":
         smem = _TMA_ALIGN + STAGES * (x_panel + tile_panel) + STAGES * 8
     else:
@@ -301,6 +315,77 @@ def periodic_block_ell_plain(x_padded, tiles, tile_ids, col_blk, s, P, R,
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
+def grouped_chunk(B, m, G, KB, TN, itemsize):
+    """The patterns of a bucket (m, G) that one grouped einsum takes: as
+    many as keep its gathered x blocks under GLOBAL['PERIODIC_X_CHUNK_BYTES']."""
+    budget = int(GLOBAL.get("PERIODIC_X_CHUNK_BYTES", 256 << 20))
+    return max(1, min(G, budget // max(1, B * m * KB * TN * itemsize)))
+
+
+def grouped_block_ell_plain(x_padded, tiles, patterns, rows, col_blk, buckets, n_out_padded):
+    """The grouped contract in plain PyTorch (grouped_block_ell_matmul):
+    for each bucket (m, G) of ``buckets`` the G patterns' tiles gathered
+    once and one einsum over the x blocks of their rows, grouped_chunk
+    patterns at a time, each row-block's output put at its place.  Returns
+    (B, min(n_out_padded, n_rb·TM)) f32."""
+    B = x_padded.shape[0]
+    TM, TN = tiles.shape[1], tiles.shape[2]
+    n_rb, KB = col_blk.shape
+    xb = x_padded.to(tiles.dtype).reshape(B, -1, TN)
+    out = torch.zeros((B, n_rb, TM), dtype=torch.float32, device=x_padded.device)
+    g0 = r0 = 0
+    for m, G in buckets:
+        T = tiles[patterns[g0:g0 + G].long()].float()           # (G, KB, TM, TN)
+        rg = rows[r0:r0 + G * m].long().reshape(G, m)
+        gc = grouped_chunk(B, m, G, KB, TN, tiles.element_size())
+        for a in range(0, G, gc):
+            r = rg[a:a + gc]
+            Xt = xb[:, col_blk[r].long()].float()                # (B, g, m, KB, TN)
+            y = torch.einsum("bgmkn,gktn->bgmt", Xt, T[a:a + gc])
+            out[:, r.reshape(-1)] = y.reshape(B, -1, TM)
+        g0, r0 = g0 + G, r0 + G * m
+    return out.reshape(B, n_rb * TM)[:, :min(int(n_out_padded), n_rb * TM)]
+
+
+def grouped_tables(buckets, patterns, B, TM, TN, dtype, device=None):
+    """The launches of the grouped kernel for a plan's ``buckets`` ((m, G),
+    ...) at batch B: {"B": B, "launches": [(launch_plan, table)]}, one
+    launch a row tile (each bucket at the least that holds its m·B pairs),
+    widest first.  A table is (n_blocks, 4) int32 on ``device``, one
+    {pattern, its first row in rows, m, first pair} a block: each group's
+    ceil(m·B / BT) pair chunks side by side, so that they share its tiles
+    in L2, and the groups with the most non-zero slots first, so that the
+    longest blocks start first and fewer run alone at the launch's end.
+    ``patterns``: the (n_patterns, KB) tile ids."""
+    nz = (torch.as_tensor(patterns).cpu() > 0).sum(1)
+    by_tile = {}
+    g0 = r0 = 0
+    for m, G in buckets:
+        if m * B + 128 > 2 ** 31 - 1:
+            raise ValueError("grouped_tables: %d x %d pairs of one group overflow int32"
+                             % (m, B))
+        plan = launch_plan(m * B, TM, TM, TN, dtype, "grouped")
+        BT, chunks = plan["BT"], plan["grid"][0]
+        e = torch.empty((G, chunks, 4), dtype=torch.int32)
+        e[..., 0] = torch.arange(g0, g0 + G, dtype=torch.int32)[:, None]
+        e[..., 1] = (r0 + m * torch.arange(G, dtype=torch.int32))[:, None]
+        e[..., 2] = m
+        e[..., 3] = BT * torch.arange(chunks, dtype=torch.int32)
+        _, es, ns = by_tile.setdefault(BT, (plan, [], []))
+        es.append(e.reshape(-1, 4))
+        ns.append(nz[g0:g0 + G].repeat_interleave(chunks))
+        g0, r0 = g0 + G, r0 + G * m
+    launches = []
+    for BT in sorted(by_tile, reverse=True):
+        plan, es, ns = by_tile[BT]
+        # stable: a group's chunks, side by side, share its key and stay so
+        table = torch.cat(es)[torch.argsort(-torch.cat(ns), stable=True)]
+        if table.shape[0] > _GRID_X_MAX:
+            raise ValueError("grouped_tables: %d blocks exceed grid.x" % table.shape[0])
+        launches.append((plan, table.to(device) if device is not None else table))
+    return {"B": int(B), "launches": launches}
+
+
 # ------------------------------------------------------------------ build
 
 def _nvcc():
@@ -319,9 +404,9 @@ def _headers(csrc):
 def _bind(name, lib):
     """Set the ctypes signature of a library's launch and error functions."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn_name, n_int, n_tail = _LAUNCH_FN[name]
+    fn_name, n_ptr, n_int, n_tail = _LAUNCH_FN[name]
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ptr] * 5 + [i32] * n_int + [ptr] * n_tail
+    fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * n_tail
     fn.restype = i32
     err = getattr(lib, name + "_error_string")
     err.argtypes = [i32]
@@ -390,9 +475,11 @@ def _lib(name):
 
 # ------------------------------------------------------------------ launch
 
-def _operands(name, x_padded, tiles, tile_ids, col_blk):
+def _operands(name, x_padded, tiles, tile_ids, col_blk, same_rows=True):
     """Check the operands of a CUDA launch (device, dtypes, shapes) and
-    return them contiguous, x cast to the tile dtype."""
+    return them contiguous, x cast to the tile dtype.  Without
+    ``same_rows`` tile_ids (the grouped kernel's patterns) and col_blk need
+    only the same number of slots a row."""
     dev = x_padded.device
     if dev.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (name, dev))
@@ -407,7 +494,9 @@ def _operands(name, x_padded, tiles, tile_ids, col_blk):
     if TM % 128 or TN % 128:
         raise ValueError("%s: TM and TN must be multiples of 128, got %s"
                          % (name, (TM, TN)))
-    if x_padded.shape[1] % TN or tuple(col_blk.shape) != tuple(tile_ids.shape):
+    shapes = (tuple(col_blk.shape), tuple(tile_ids.shape)) if same_rows \
+        else (col_blk.shape[1:], tile_ids.shape[1:])
+    if x_padded.shape[1] % TN or shapes[0] != shapes[1]:
         raise ValueError("%s: x width %d / col_blk %s do not fit TN=%d, tile_ids %s"
                          % (name, x_padded.shape[1], tuple(col_blk.shape), TN,
                             tuple(tile_ids.shape)))
@@ -537,3 +626,53 @@ def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):
         out.data_ptr(), B, n_cols, KB, TM, TN, s, P, R, plan["kind"], plan["BT"], plan["smem"],
         torch.cuda.current_stream(x.device).cuda_stream), plan["kind"])
     return out
+
+
+def grouped_block_ell_matmul(x_padded, tiles, patterns, rows, col_blk, buckets,
+                             n_out_padded, tables=None):
+    """The grouped-row apply of a Block-ELL core (no Pallas counterpart):
+    ``buckets`` lists (m, G) of a grouped-row plan, ``patterns``
+    (ΣG, KB) int32 the G tile_ids rows of each bucket in turn, ``rows``
+    (n_rb,) int32 the row-blocks of each bucket's groups in turn (group g of
+    a bucket at rows[g·m : (g+1)·m], every row-block once), col_blk
+    (n_rb, KB) int32.  Each row-block r of group g gives
+    y[:, r·TM:(r+1)·TM] = Σ_k x[:, col_blk[r,k]·TN : +TN] @ tiles[patterns[g,k]]ᵀ,
+    accumulated and returned in f32 as (B, min(n_out_padded, n_rb·TM)).
+    On a CUDA tensor one launch of csrc/grouped_block_ell.cu a row tile, as
+    ``tables`` (grouped_tables at this B, on the card; made now if None)
+    lays them out: each pattern's tiles read through its ids, x through
+    col_blk, id-0 slots skipped, each output written once, in place."""
+    name = "grouped_block_ell_matmul"
+    buckets = [(int(m), int(G)) for m, G in buckets]
+    n_rb, KB = col_blk.shape
+    if tuple(rows.shape) != (n_rb,) or sum(m * G for m, G in buckets) != n_rb \
+            or tuple(patterns.shape) != (sum(G for _, G in buckets), KB):
+        raise ValueError("%s: buckets %s, patterns %s and rows %s do not fit col_blk %s"
+                         % (name, buckets, tuple(patterns.shape), tuple(rows.shape),
+                            tuple(col_blk.shape)))
+    if x_padded.device.type == "cpu":
+        return grouped_block_ell_plain(x_padded, tiles, patterns, rows, col_blk, buckets,
+                                       n_out_padded)
+    x, tiles, patterns, cols = _operands(name, x_padded, tiles, patterns, col_blk,
+                                         same_rows=False)
+    if rows.device != x.device or rows.dtype != torch.int32:
+        raise ValueError("%s: rows must be int32 on %s" % (name, x.device))
+    rows = rows.contiguous()
+    TM, TN = tiles.shape[1], tiles.shape[2]
+    B, n_cols = x.shape
+    out = torch.empty((B, n_rb * TM), dtype=torch.float32, device=x.device)
+    n_out = min(int(n_out_padded), n_rb * TM)
+    if B == 0:
+        return out[:, :n_out]
+    if tables is None:
+        tables = grouped_tables(buckets, patterns, B, TM, TN, tiles.dtype, x.device)
+    if tables["B"] != B:
+        raise ValueError("%s: tables made for B=%d, x has B=%d" % (name, tables["B"], B))
+    launch = _lib("grouped_block_ell").grouped_block_ell
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for plan, table in tables["launches"]:
+        _launched(name, "grouped_block_ell", launch(
+            x.data_ptr(), tiles.data_ptr(), patterns.data_ptr(), rows.data_ptr(),
+            cols.data_ptr(), table.data_ptr(), out.data_ptr(), B, n_cols, KB, TM, TN, n_rb,
+            table.shape[0], plan["kind"], plan["BT"], plan["smem"], stream), plan["kind"])
+    return out[:, :n_out]

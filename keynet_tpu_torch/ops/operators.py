@@ -25,7 +25,7 @@ import scipy.sparse
 import torch
 import torch.nn.functional as F
 
-from ..globals import GLOBAL
+from ..globals import GLOBAL, kernel_precision
 from ..profiling import GROUPED_ROWS, TAPSUM_STACKED, annotate
 
 # Default tile for blocked-sparse keyed matrices.
@@ -213,9 +213,11 @@ class BlockSparseOp(LinearOp):
     tile_ids, and elsewhere they apply as one einsum over the period's
     tiles, expanded once (``_Texp``, not kept beside kernel-routed tiles).
     Non-periodic ops whose rows repeat in arbitrary order get a grouped-row
-    plan (find_row_groups).
+    plan (find_row_groups), applied by the grouped kernel
+    (ops/block_ell.grouped_block_ell_matmul) where _grouped_kernel holds,
+    else as one einsum a bucket.
     """
-    _tensors = ("tiles", "tile_ids", "col_blk", "_rgroup_inv")
+    _tensors = ("tiles", "tile_ids", "col_blk")
 
     def __init__(self, tiles, tile_ids, col_blk, shape, tileshape, nnz,
                  period=None):
@@ -241,10 +243,12 @@ class BlockSparseOp(LinearOp):
                 raise ValueError("Block-ELL tile_ids/col_blk out of range")
         self._Texp = None
         self._sync_texp()
+        # the grouped-row plan: int32 (patterns (ΣG, KB), rows (n_rb,)), each
+        # bucket's in turn (find_row_groups), and (m, G) a bucket
         self._rgroups = None
         self._rgroup_meta = ()
         self._rgroup_reads = ()
-        self._rgroup_inv = None
+        self._rgroup_tables = {}     # B -> the grouped kernel's launches
         if (self.period is None
                 and n_rb * KB * TM * TN * self.tiles.element_size()
                 >= int(GLOBAL.get("ROWGROUP_MIN_SLOT_BYTES", 64 << 20))):
@@ -252,17 +256,11 @@ class BlockSparseOp(LinearOp):
             plan = find_row_groups(ids_np)
             if plan is not None:
                 cb_np = self.col_blk.cpu().numpy()
-                groups, meta = [], []
-                for m, rows, patterns in plan["buckets"]:
-                    G = len(patterns)
-                    groups.append((torch.as_tensor(patterns, dtype=torch.int64),
-                                   torch.as_tensor(cb_np[rows].reshape(G, m, KB),
-                                                   dtype=torch.int64)))
-                    meta.append((m, G))
-                self._rgroups = groups
-                self._rgroup_meta = tuple(meta)
-                self._rgroup_inv = torch.as_tensor(plan["inv_order"],
-                                                   dtype=torch.int64)
+                self._rgroups = tuple(
+                    torch.as_tensor(np.concatenate([b[i] for b in plan["buckets"]]),
+                                    dtype=torch.int32, device=self.tile_ids.device)
+                    for i in (2, 1))
+                self._rgroup_meta = tuple((m, len(p)) for m, _, p in plan["buckets"])
                 # what the apply has to read, kept in profiling.GROUPED_ROWS:
                 # each bucket's non-zero pattern slots, the distinct non-zero
                 # tiles and the x blocks that non-zero slots read
@@ -274,7 +272,8 @@ class BlockSparseOp(LinearOp):
     def to(self, device):
         super().to(device)
         if self._rgroups is not None:
-            self._rgroups = [(p.to(device), c.to(device)) for p, c in self._rgroups]
+            self._rgroups = tuple(t.to(device) for t in self._rgroups)
+            self._rgroup_tables = {}
         self._sync_texp()
         return self
 
@@ -372,12 +371,22 @@ class BlockSparseOp(LinearOp):
 
         return self._apply_rows(x, 0, n_rb)[:, :n_out]
 
+    def _grouped_kernel(self, device):
+        """Whether the grouped-row apply on ``device`` launches the grouped
+        kernel: where block_ell_route gives "kernel" and the tiles multiply
+        as IEEE f32 (f32 tiles under 'highest' and 'high').  bf16 tiles and
+        'default' keep the einsum, as the CPU does."""
+        return block_ell_route(device.type, *self.tileshape) == "kernel" \
+            and kernel_precision(self.tiles.dtype) == "ieee"
+
     def _grouped_wins(self, B, device):
         """Traffic model: grouped-row apply vs the slot walk it replaces.
-        Grouped gathers each distinct pattern's tiles once (write+read) plus
-        the per-slot x blocks and a row-block reorder of the output; the
-        CUDA slot walk reads a tile per slot, the gather+einsum writes and
-        reads it."""
+        The grouped kernel reads each distinct non-zero tile once (the
+        blocks of its group share it in L2) and the per-slot x blocks; the
+        grouped einsum gathers each distinct pattern's tiles once
+        (write+read) plus the per-slot x blocks and a row-block reorder of
+        the output.  The CUDA slot walk reads a tile per slot, the
+        gather+einsum writes and reads it."""
         TM, TN = self.tileshape
         it = self.tiles.element_size()
         tile_b = TM * TN * it
@@ -385,40 +394,69 @@ class BlockSparseOp(LinearOp):
         slots = n_rb * KB
         distinct_slots = sum(G * KB for _, G in self._rgroup_meta)
         x_b = slots * B * TN * it
-        grouped = 2 * distinct_slots * tile_b + x_b + 2 * B * n_rb * TM * 4
+        if self._grouped_kernel(device):
+            grouped = self._rgroup_reads[1] * tile_b + x_b
+        else:
+            grouped = 2 * distinct_slots * tile_b + x_b + 2 * B * n_rb * TM * 4
         alt = slots * tile_b + x_b if block_ell_route(device.type, TM, TN) == "kernel" \
             else 2 * slots * tile_b + x_b
         return grouped < alt
 
     def _apply_grouped(self, xb):
-        """Grouped-row apply: one batched einsum per multiplicity bucket, each
-        distinct tile_ids pattern's tiles gathered once; outputs come in
-        bucket order and are un-permuted with a row-block take.  Each call
-        is recorded in profiling.GROUPED_ROWS."""
+        """Grouped-row apply of the padded x, (B, n_cb, TN): the grouped
+        kernel where _grouped_kernel holds (_grouped_launch), else one
+        batched einsum per multiplicity bucket (_grouped_einsum).  Each call
+        is recorded in profiling.GROUPED_ROWS, ``chunks`` counting the
+        kernel's launches or the einsums.  Returns (B, n_rb·TM) f32."""
+        if self._grouped_kernel(xb.device):
+            y, chunks = self._grouped_launch(xb)
+        else:
+            y, chunks = self._grouped_einsum(xb)
+        TM, TN = self.tileshape
+        it = self.tiles.element_size()
+        KB = self.tile_ids.shape[1]
+        nz_slots, n_tiles, x_blocks = self._rgroup_reads
+        GROUPED_ROWS["applies"] += 1
+        GROUPED_ROWS["chunks"] += chunks
+        GROUPED_ROWS["cores"]["%dx%d" % self.shape] = dict(
+            last=GROUPED_ROWS["applies"], B=xb.shape[0], x_itemsize=xb.element_size(),
+            tiles=n_tiles, x_blocks=x_blocks,
+            buckets=[[m, G, KB, TM, TN, it, nz]
+                     for (m, G), nz in zip(self._rgroup_meta, nz_slots)])
+        return y
+
+    def _grouped_launch(self, xb):
+        """The grouped kernel over the whole plan, its launches laid out
+        once per batch size (block_ell.grouped_tables, kept in
+        _rgroup_tables): each pattern's tiles read through its ids, x
+        through col_blk, the outputs written in place.  Returns (y, launches)."""
+        from .block_ell import grouped_block_ell_matmul, grouped_tables
         B = xb.shape[0]
         TM, TN = self.tileshape
-        budget = int(GLOBAL.get("PERIODIC_X_CHUNK_BYTES", 256 << 20))
-        it = self.tiles.element_size()
-        nz_slots, n_tiles, x_blocks = self._rgroup_reads
-        parts, buckets = [], []
-        for (patterns, cols), (m, G), nz in zip(self._rgroups, self._rgroup_meta, nz_slots):
-            KB = patterns.shape[1]
-            T = self.tiles[patterns].float()              # (G, KB, TM, TN)
-            gc = max(1, min(G, budget // max(1, B * m * KB * TN * it)))
-            for g0 in range(0, G, gc):
-                Xt = xb[:, cols[g0:g0 + gc]].float()      # (B, g, m, KB, TN)
-                y = torch.einsum("bgmkn,gktn->bgmt", Xt, T[g0:g0 + gc])
-                parts.append(y.reshape(B, -1))
-            buckets.append([m, G, KB, TM, TN, it, nz])
-        y = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
         n_rb = self.tile_ids.shape[0]
-        y = y.reshape(B, n_rb, TM)[:, self._rgroup_inv]
-        GROUPED_ROWS["applies"] += 1
-        GROUPED_ROWS["chunks"] += len(parts)
-        GROUPED_ROWS["cores"]["%dx%d" % self.shape] = dict(
-            last=GROUPED_ROWS["applies"], B=B, x_itemsize=xb.element_size(),
-            tiles=n_tiles, x_blocks=x_blocks, buckets=buckets)
-        return y.reshape(B, n_rb * TM)
+        patterns, rows = self._rgroups
+        tables = self._rgroup_tables.get(B)
+        if tables is None:
+            if len(self._rgroup_tables) >= 8:   # a few batch sizes are served
+                self._rgroup_tables.clear()
+            tables = self._rgroup_tables[B] = grouped_tables(
+                self._rgroup_meta, patterns, B, TM, TN, self.tiles.dtype, xb.device)
+        y = grouped_block_ell_matmul(xb.reshape(B, -1), self.tiles, patterns, rows,
+                                     self.col_blk, self._rgroup_meta, n_rb * TM, tables)
+        return y, len(tables["launches"])
+
+    def _grouped_einsum(self, xb):
+        """The grouped einsum (block_ell.grouped_block_ell_plain): per
+        bucket, each pattern's tiles gathered once and one einsum a chunk of
+        patterns.  Returns (y, einsums)."""
+        from .block_ell import grouped_block_ell_plain, grouped_chunk
+        B, _, TN = xb.shape
+        n_rb, KB = self.tile_ids.shape
+        it = self.tiles.element_size()
+        y = grouped_block_ell_plain(xb.reshape(B, -1), self.tiles, *self._rgroups,
+                                    self.col_blk, self._rgroup_meta, n_rb * self.tileshape[0])
+        return y, sum(-(-G // grouped_chunk(B, m, G, KB, TN, it))
+                      for m, G in self._rgroup_meta)
 
     def _apply_rows(self, x, a, b):
         """Slot walk for row-blocks [a, b) on the padded (B, n_cb*TN) x: the
@@ -490,9 +528,9 @@ class BlockSparseOp(LinearOp):
         texp = self._Texp.numel() * self._Texp.element_size() \
             if self._Texp is not None else 0
         rg = 0
-        if self._rgroups is not None:
-            rg = sum(int(p.numel()) * 4 + int(c.numel()) * 4
-                     for p, c in self._rgroups) + int(self._rgroup_inv.numel()) * 4
+        if self._rgroups is not None:   # as keynet_tpu counts its plan: int32
+            n_rb, KB = self.tile_ids.shape   # patterns, column blocks, order
+            rg = (sum(G for _, G in self._rgroup_meta) * KB + n_rb * KB + n_rb) * 4
         return int(self.tiles.numel()) * self.tiles.element_size() \
             + int(self.tile_ids.numel()) * 8 + texp + rg
 

@@ -513,11 +513,12 @@ def _masked_core():
                                     ("ell_k16", 32)])
 def test_stochastic_ops_on_card(case, B):
     """The stochastic recipe's device paths: on a masked streamed core of
-    the net above the grouped-row einsum and the slot-walk kernel give the
-    same output within 1e-5·max(1, scale); an EllOp of K=16 (the row
-    length of keynet_tpu's F2 mask factor at VGG conv2_1,
-    docs/SERVING.md:206-207) gives the same result on the card as on the
-    CPU."""
+    the net above the grouped-row apply (the grouped kernel with f32 tiles;
+    tests/test_torch_grouped_card.py holds it against the einsum too) and
+    the slot-walk kernel give the same output within 1e-5·max(1, scale); an
+    EllOp of K=16 (the row length of keynet_tpu's F2 mask factor at VGG
+    conv2_1, docs/SERVING.md:206-207) gives the same result on the card as
+    on the CPU."""
     _needs_card()
     from keynet_tpu_torch.ops.operators import EllOp
     rng = np.random.default_rng(B)

@@ -295,3 +295,140 @@ def test_readers_read_nothing_without_a_trace(tmp_path, monkeypatch):
     assert spans.for_record(rec) is not None
     assert _reader("grouped_ms.batch").read(rec) is None
     assert _reader("grouped_roofline.batch").read(rec) is None
+
+
+# ------------------------------------------------------------ the grouped kernel
+
+def test_kernel_plan_is_the_plan(core, padded_core):
+    """The grouped kernel's int32 arrays hold the plan: the patterns of each
+    bucket in turn, and the row-blocks of each group, whose tile_ids rows
+    are the group's pattern; every row-block once."""
+    for op in (core, padded_core):
+        patterns, rows = op._rgroups
+        assert patterns.dtype == rows.dtype == torch.int32
+        assert sorted(rows.tolist()) == list(range(N_RB))
+        g = r = 0
+        for m, G in op._rgroup_meta:
+            for _ in range(G):
+                assert bool((op.tile_ids[rows[r:r + m].long()] == patterns[g]).all())
+                g, r = g + 1, r + m
+        assert g == patterns.shape[0]
+
+
+@pytest.mark.parametrize("which", ["core", "padded_core"])
+def test_grouped_entry_plain_on_the_cpu(which, x, request):
+    """The grouped entry on a CPU tensor computes its plain version, the
+    grouped einsum that the CPU route applies, within 1e-5 of the slot
+    walk's plain version, and launches nothing; a plan that does not fit
+    col_blk is refused."""
+    from keynet_tpu_torch.ops import block_ell
+    op = request.getfixturevalue(which)
+    patterns, rows = op._rgroups
+    block_ell.reset_launches()
+    y = block_ell.grouped_block_ell_matmul(x, op.tiles, patterns, rows, op.col_blk,
+                                           op._rgroup_meta, N_RB * TM)
+    assert sum(block_ell.LAUNCHES.values()) == 0
+    assert not op._grouped_kernel(x.device) and torch.equal(op.apply(x), y)
+    assert torch.allclose(y, op._apply_rows(x, 0, N_RB), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="do not fit"):
+        block_ell.grouped_block_ell_matmul(x, op.tiles, patterns, rows[1:], op.col_blk,
+                                           op._rgroup_meta, N_RB * TM)
+
+
+# The grouped-row plans of the stochastic VGG-16's conv1_1 and conv2_1 cores
+# at 224 (the cell vgg16-stoch-224.b32): (m, G) a bucket, KB, column blocks
+VGG_PLANS = {
+    "conv1_1": ([(1, 243), (2, 3), (5, 218), (10, 12), (26, 3), (31, 1), (32, 10),
+                 (206, 3), (212, 10), (217, 1), (232, 8), (238, 25), (243, 4), (244, 47)],
+                26, 1281),
+    "conv2_1": ([(1, 228), (2, 3), (3, 4), (4, 1), (5, 4), (6, 6), (7, 13), (8, 32), (9, 15),
+                 (10, 54), (11, 55), (12, 26), (20, 2), (23, 8), (24, 6), (25, 2), (27, 2),
+                 (31, 156), (32, 156)], 37, 6273)}
+
+
+def _vgg_patterns(name, seed=0):
+    buckets, KB, _ = VGG_PLANS[name]
+    rng = np.random.default_rng(seed)
+    patterns = rng.integers(1, 64, (sum(G for _, G in buckets), KB)).astype(np.int32)
+    patterns[rng.random(patterns.shape) < 0.3] = 0
+    return buckets, patterns
+
+
+@pytest.mark.parametrize("B", [1, 8, 32, 33, 128])
+@pytest.mark.parametrize("name", sorted(VGG_PLANS))
+def test_grouped_tables(name, B):
+    """grouped_tables at the VGG cores' plans: one launch a row tile (each
+    bucket at the least tile that holds its m·B pairs), widest first; every
+    pair chunk of every group once, a group's chunks side by side, groups
+    by non-zero slots, most first."""
+    from keynet_tpu_torch.ops import block_ell
+    buckets, patterns = _vgg_patterns(name)
+    t = block_ell.grouped_tables(buckets, patterns, B, 128, 128, torch.float32)
+    assert t["B"] == B
+    bt = {}
+    g0 = r0 = 0
+    for m, G in buckets:
+        plan = block_ell.launch_plan(m * B, 128, 128, 128, torch.float32, "grouped")
+        assert plan["kind"] == 0 and plan["smem"] == block_ell.launch_plan(
+            m * B, 128, 128, 128, torch.float32, "periodic")["smem"]
+        for g in range(G):
+            bt[g0 + g] = (plan["BT"], r0 + g * m, m, -(-m * B // plan["BT"]))
+        g0, r0 = g0 + G, r0 + G * m
+    tiles = [p["BT"] for p, _ in t["launches"]]
+    assert tiles == sorted(set(v[0] for v in bt.values()), reverse=True)
+    nz = (patterns > 0).sum(1)
+    seen = set()
+    for plan, table in t["launches"]:
+        assert table.dtype == torch.int32 and table.shape[1] == 4
+        e = table.numpy()
+        groups = [int(g) for i, g in enumerate(e[:, 0]) if i == 0 or e[i - 1, 0] != g]
+        assert len(groups) == len(set(groups))                   # chunks side by side
+        assert list(nz[groups]) == sorted(nz[groups], reverse=True)
+        for g, first, m, q0 in e:
+            BT, want_first, want_m, chunks = bt[int(g)]
+            assert (plan["BT"], int(first), int(m)) == (BT, want_first, want_m)
+            assert q0 % BT == 0 and q0 < m * B
+            seen.add((int(g), int(q0)))
+    n_blocks = sum(len(tb) for _, tb in t["launches"])
+    assert len(seen) == sum(v[3] for v in bt.values()) == n_blocks
+
+
+@pytest.fixture(scope="module", params=sorted(VGG_PLANS))
+def vgg_core(request):
+    """A core with the plan of a VGG core (random tiles and column blocks)."""
+    buckets, patterns = _vgg_patterns(request.param)
+    KB, n_cb = VGG_PLANS[request.param][1:]
+    rng = np.random.default_rng(1)
+    rows = np.repeat(np.arange(len(patterns)), np.concatenate([[m] * G for m, G in buckets]))
+    rng.shuffle(rows)
+    tile_ids = patterns[rows]
+    col_blk = rng.integers(0, n_cb, tile_ids.shape).astype(np.int32)
+    tiles = torch.zeros((64, 128, 128))
+    op = BlockSparseOp(tiles, tile_ids, col_blk, (len(rows) * 128, n_cb * 128), (128, 128),
+                       int((tile_ids > 0).sum()) * 128 * 128)
+    assert [tuple(b) for b in op._rgroup_meta] == buckets
+    return op
+
+
+@pytest.mark.parametrize("B", [1, 8, 32, 128])
+def test_grouped_wins_takes_the_kernel(vgg_core, B, monkeypatch):
+    """Under the kernel route with f32 tiles in 'highest' and 'high' the
+    grouped-row apply launches the grouped kernel, and its traffic beats the
+    slot walk's at the VGG cores' plans; under 'default' (tf32 products)
+    and on the CPU the einsum keeps its own model."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    G = kt.globals.GLOBAL
+    for mode in ("highest", "high"):
+        monkeypatch.setitem(G, "PRECISION", mode)
+        assert vgg_core._grouped_kernel(cuda) and vgg_core._grouped_wins(B, cuda)
+        assert not vgg_core._grouped_kernel(cpu)
+    monkeypatch.setitem(G, "PRECISION", "default")
+    assert not vgg_core._grouped_kernel(cuda)
+    # the einsum's model: the gathers' write and read, the reorder
+    TM, TN = vgg_core.tileshape
+    n_rb, KB = vgg_core.tile_ids.shape
+    tile_b = TM * TN * 4
+    x_b = n_rb * KB * B * TN * 4
+    einsum = 2 * sum(G * KB for _, G in vgg_core._rgroup_meta) * tile_b + x_b \
+        + 2 * B * n_rb * TM * 4
+    assert vgg_core._grouped_wins(B, cuda) == (einsum < n_rb * KB * tile_b + x_b)

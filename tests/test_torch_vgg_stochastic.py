@@ -161,7 +161,15 @@ def test_packed_arrays_equal(nets, layer):
         assert (ct._rgroups is None) == (cj._rgroups is None)
         if ct._rgroups is not None:
             assert ct._rgroup_meta == cj._rgroup_meta
-            assert np.array_equal(np.asarray(cj._rgroup_inv), ct._rgroup_inv.numpy())
+            # the port's patterns are keynet_tpu's, bucket by bucket, and its
+            # rows keynet_tpu's order inverted, their column blocks keynet_tpu's
+            patterns, rows = (t.numpy() for t in ct._rgroups)
+            assert np.array_equal(np.concatenate([np.asarray(p) for p, _ in cj._rgroups]),
+                                  patterns)
+            assert np.array_equal(np.asarray(cj._rgroup_inv)[rows], np.arange(len(rows)))
+            assert np.array_equal(np.concatenate([np.asarray(c).reshape(-1, c.shape[-1])
+                                                  for _, c in cj._rgroups]),
+                                  ct.col_blk.numpy()[rows])
 
 
 @pytest.mark.parametrize("B", [1, 8, 32])
