@@ -700,19 +700,22 @@ def tf32_rounding_pin(kt, block_ell):
 # --------------------------------------------------------------- phase 3
 def route_str(op):
     """An op's kind down its chain; a Block-ELL core with its (n_rb, KB),
-    unique tiles, tile shape, period, block_ell_route on its device
-    ("kernel" or "einsum") and whether it holds a grouped-row plan (which
-    it takes where _grouped_wins); an EllOp with its row length K."""
+    unique tiles, tile shape, period, whether its schedule on its device
+    launches kernels ("kernel", else "plain" on the CPU and "einsum" off
+    it) and whether it holds a grouped-row plan; an EllOp with its row
+    length K."""
     from keynet_tpu_torch.ops.operators import (BlockSparseOp, ChainedOp,
                                                 ChannelBroadcastOp, EllOp,
-                                                PermutedBlockSparseOp, block_ell_route)
+                                                PermutedBlockSparseOp)
     if isinstance(op, ChainedOp):
         return "Chain[%s]" % ", ".join(route_str(o) for o in op.ops)
     if isinstance(op, (PermutedBlockSparseOp, BlockSparseOp)):
         c = getattr(op, "inner", op)
+        dev = c.tiles.device
         return "%s(Block-ELL %s, %d tiles of %dx%d, period %s, %s%s)" % (
             type(op).__name__, tuple(c.tile_ids.shape), c.tiles.shape[0], *c.tileshape,
-            c.period, block_ell_route(c.tiles.device.type, *c.tileshape),
+            c.period, "kernel" if c._kernel_side(dev) else "plain" if dev.type == "cpu"
+            else "einsum",
             "" if c._rgroups is None else ", grouped-row plan")
     if isinstance(op, ChannelBroadcastOp):
         return "ChannelBroadcastOp(C=%d, %s)" % (op.C, route_str(op.inner))
@@ -743,27 +746,11 @@ def block_ell_cores(sensor, knet):
     return cores
 
 
-def entries_of(block_ell, core, B):
+def entries_of(core, B):
     """The kernel entries one apply of ``core`` to B rows launches on the
-    card (BlockSparseOp.apply): none for tiles that block_ell_route sends
-    to the einsum, the periodic kernel for the mid-section when the period
-    route is taken, when the grouped-row apply is the grouped kernel where
-    _grouped_kernel holds and none (its einsum) elsewhere, else the slot
-    walk of route(KB) for the rows outside the period."""
+    card: those its schedule names."""
     import torch
-    from keynet_tpu_torch.ops.operators import block_ell_route
-    n_rb, KB = core.tile_ids.shape
-    if block_ell_route("cuda", *core.tileshape) != "kernel":
-        return set()
-    if core.period is not None:
-        s, P, R = core.period
-        if B <= (R - 1) * core.tileshape[0] // R:
-            rest = {block_ell.route(KB).__name__} if s or s + P * R < n_rb else set()
-            return {"periodic_block_ell_matvec"} | rest
-    elif core._rgroups is not None and core._grouped_wins(B, torch.device("cuda")):
-        return {"grouped_block_ell_matmul"} if core._grouped_kernel(torch.device("cuda")) \
-            else set()
-    return {block_ell.route(KB).__name__}
+    return {step.entry for step in core.schedule(B, torch.device("cuda")) if step.entry}
 
 
 def never_routed(launches, where):
@@ -894,10 +881,12 @@ def default_launches(block_ell, cores, where):
     periodic kernel a tf32 one (f32 tiles); xres and grid never.  Returns
     (launches, tf32 launches)."""
     import torch
+    import keynet_tpu_torch as kt
     torch.cuda.synchronize()
     launches, tf32 = dict(block_ell.LAUNCHES), dict(block_ell.TF32_LAUNCHES)
-    routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for c, m, bs in cores
-                                  for B in bs)))
+    with global_keys(kt, PRECISION="default"):   # the routes the runs took
+        routed = sorted(set().union(*(entries_of(c, B * m) for c, m, bs in cores
+                                      for B in bs)))
     log("[%s] launches: %s; tf32 launches: %s; entries routed by the driven Block-ELL "
         "cores: %s" % (where, json.dumps(launches), json.dumps(tf32), routed))
     for name in routed:
@@ -954,7 +943,7 @@ def phase_main_vgg(kt, block_ell, bf16=False, f32_memory=None):
                    nonzero_slots=int((c.tile_ids > 0).sum()))
         if bf16:
             res.update(tiles=str(c.tiles.dtype), apply={
-                "B=%d" % B: core_apply(block_ell, c, B * per_image) for B in (1, 8, 32)})
+                "B=%d" % B: core_apply(c, B * per_image) for B in (1, 8, 32)})
         log("[%s] core %s: %s" % (tag, name, json.dumps(res)))
     gate = int(kt.globals.GLOBAL.get("PERIODIC_EXPAND_BYTES", 512 << 20))
     texp = sum(c._expand_bytes() for _, c, _ in cores
@@ -982,7 +971,7 @@ def phase_main_vgg(kt, block_ell, bf16=False, f32_memory=None):
     if not periodic:
         raise AssertionError("no periodic Block-ELL core on the %s path" % label)
     want = sum(forwards[B] * sum("periodic_block_ell_matvec"
-                                 in entries_of(block_ell, c, B * m)
+                                 in entries_of(c, B * m)
                                  for n, c, m in periodic if n != "sensor")
                for B in forwards)
     log("[%s] periodic cores: %s; periodic launches %d, at least %d wanted"
@@ -990,7 +979,7 @@ def phase_main_vgg(kt, block_ell, bf16=False, f32_memory=None):
     if launches["periodic_block_ell_matvec"] < want or want == 0:
         raise AssertionError("periodic_block_ell_matvec launched %d times, want >= %d"
                              % (launches["periodic_block_ell_matvec"], want))
-    routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for _, c, m in cores
+    routed = sorted(set().union(*(entries_of(c, B * m) for _, c, m in cores
                                   for B in forwards)))
     log("[%s] entries routed by the driven Block-ELL cores: %s" % (tag, routed))
     for name in routed:
@@ -1038,7 +1027,7 @@ def phase_vgg_default(kt, block_ell, paths):
             tol=TOL_SERVE_BF16, mode="default")
     launches, tf32 = default_launches(
         block_ell, [(c, m, tuple(forwards)) for _, c, m in cores], tag)
-    want = sum(forwards[B] * sum("periodic_block_ell_matvec" in entries_of(block_ell, c, B * m)
+    want = sum(forwards[B] * sum("periodic_block_ell_matvec" in entries_of(c, B * m)
                                  for n, c, m in cores if c.period is not None and n != "sensor")
                for B in forwards)
     log("[%s] periodic launches %d (tf32 %d), at least %d wanted"
@@ -1090,7 +1079,7 @@ def hold_cores_at_forward(block_ell, sensor, knet, cores, xcs, inshape, tag="vgg
             held[entry] = held.get(entry, 0) + 1
         fed = {name for name, _, _, _ in rec.calls}
         for name, c, m in cores:
-            if entries_of(block_ell, c, B * m) and name not in fed:
+            if entries_of(c, B * m) and name not in fed:
                 raise AssertionError("[%s] %s routes to a kernel at B=%d and was fed "
                                      "nothing" % (tag, name, B))
         del rec
@@ -1863,7 +1852,6 @@ def phase_tiled(kt, block_ell):
     its mid-sections take the period route); keyed == source within
     1e-5*max(1, scale), every such core routed to the einsum."""
     import torch
-    from keynet_tpu_torch.ops.operators import block_ell_route
     nets = []
     t = time.perf_counter()
     with global_keys(kt, DENSE_MAX_BYTES=1 << 20):
@@ -1880,7 +1868,7 @@ def phase_tiled(kt, block_ell):
         log_routes("tiled", sensor, knet, label)
         cores = block_ell_cores(sensor, knet)
         small = [c for _, c, _ in cores if c.tileshape[0] % 128 or c.tileshape[1] % 128]
-        if not small or any(block_ell_route("cuda", *c.tileshape) != "einsum" for c in small):
+        if not small or any(entries_of(c, B) for c in small for B in batches):
             raise AssertionError("[tiled] %s: no einsum-routed sub-128 core" % label)
         for B in batches:
             keyed_vs_source(kt, net, sensor, knet, B, 200 + B, label, tag="tiled")
@@ -1955,7 +1943,7 @@ STOCH_ROUTES = {
 # The same recipe with TILE_DTYPE='bfloat16' (run_vgg_stochastic_224.py
 # --tile-dtype bfloat16).  Two gates read the tile itemsize, and neither
 # changes a layer's route at 224: the grouped-row plan's slot bytes
-# (ROWGROUP_MIN_SLOT_BYTES) and _grouped_wins decide how a core applies, not
+# (ROWGROUP_MIN_SLOT_BYTES) and the schedule decide how a core applies, not
 # the layer's links (conv1_1's and conv2_1's cores keep the grouped-row
 # apply at B = 1, 8, 32 in both dtypes: the grouped kernel with f32 tiles,
 # the einsum, to B <= 396 and 520 x itemsize, with bf16 ones), and
@@ -2077,7 +2065,7 @@ def phase_vgg_stochastic(kt, block_ell, bf16=False):
                 buckets=len(c._rgroup_meta), patterns=sum(G for _, G in c._rgroup_meta),
                 tile_gather_bytes=sum(G for _, G in c._rgroup_meta) * c.tile_ids.shape[1]
                 * c.tileshape[0] * c.tileshape[1] * c.tiles.element_size()),
-            apply={"B=%d" % B: core_apply(block_ell, c, B * per_image) for B in (1, 8, 32)}))))
+            apply={"B=%d" % B: core_apply(c, B * per_image) for B in (1, 8, 32)}))))
 
     block_ell.reset_launches()
     xcs, forwards = {}, {}
@@ -2098,7 +2086,7 @@ def phase_vgg_stochastic(kt, block_ell, bf16=False):
     log("[%s] device memory a forward takes beyond what the net holds (its "
         "activations and transients, the grouped-row tile gathers among them): %s"
         % (tag, json.dumps(transient)))
-    routed = sorted(set().union(*(entries_of(block_ell, c, B * m) for _, c, m in cores
+    routed = sorted(set().union(*(entries_of(c, B * m) for _, c, m in cores
                                   for B in forwards)))
     log("[%s] entries routed by the driven Block-ELL cores: %s" % (tag, routed))
     if not routed:
@@ -2117,19 +2105,18 @@ def phase_vgg_stochastic(kt, block_ell, bf16=False):
     return {tag: (knet, xcs, cores)}, launches
 
 
-def core_apply(block_ell, core, rows):
+def core_apply(core, rows):
     """How BlockSparseOp.apply runs ``core`` for ``rows`` rows on the card:
-    the kernel entries it launches, or the einsum it takes instead."""
+    the kernel entries its schedule launches, or the einsum it takes
+    instead."""
     import torch
-    from keynet_tpu_torch.ops.operators import block_ell_route
-    entries = entries_of(block_ell, core, rows)
+    steps = core.schedule(rows, torch.device("cuda"))
+    entries = {step.entry for step in steps if step.entry}
     if entries:
         return sorted(entries)
-    if block_ell_route("cuda", *core.tileshape) != "kernel":
-        return "einsum (sub-128 tiles)"
-    if core._rgroups is not None and core._grouped_wins(rows, torch.device("cuda")):
-        return "grouped-row einsum"     # bf16 tiles or 'default' (_grouped_kernel)
-    return "periodic einsum"
+    if any(step.kind == "grouped" for step in steps):
+        return "grouped-row einsum"     # bf16 tiles or 'default'
+    return "einsum (sub-128 tiles)"
 
 
 def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 stochastic"):
@@ -2143,12 +2130,12 @@ def stochastic_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 
              and any(isinstance(o, PermutedBlockSparseOp) for o in getattr(l.op(), "ops",
                                                                           [l.op()]))}
     name, core = max(((n, c) for n, c, m in cores if n in convs
-                      and any(entries_of(block_ell, c, B) - {"grouped_block_ell_matmul"}
+                      and any(entries_of(c, B) - {"grouped_block_ell_matmul"}
                               for B in (1, 8, 32))),
                      key=lambda nc: int((nc[1].tile_ids > 0).sum()))
     out = {}
     for B in (1, 8, 32):
-        entries = entries_of(block_ell, core, B)
+        entries = entries_of(core, B)
         if "periodic_block_ell_matvec" in entries:
             out[B] = measure_periodic(block_ell, knet, xcs[B], name, peaks, label=label)
             continue
@@ -2169,26 +2156,32 @@ def grouped_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 sto
     and (G, KB·TN, TM) tiles, gathers untimed) and the slot walk beside the
     bound (bench_kernels.work); returns {(layer, B): row}."""
     import torch
+    from keynet_tpu_torch.profiling import GROUPED_ROWS
     out = {}
     for name, core, _ in cores:
         if name not in knet.layers() or \
-                "grouped_block_ell_matmul" not in entries_of(block_ell, core, 32):
+                "grouped_block_ell_matmul" not in entries_of(core, 32):
             continue
         for B in (1, 8, 32):
             c, x = core_input(knet, xcs[B], name)
             TM, TN = c.tileshape
             n_rb = c.tile_ids.shape[0]
             xb = x.reshape(B, -1, TN)
+            step = c.schedule(B, x.device)[0]    # the grouped kernel's, as at B=32
+            plain = step._replace(entry=None)
+            walk = block_ell.route(c.tile_ids.shape[1])
             block_ell.reset_launches()
-            y, launches = c._grouped_launch(xb)
-            ref, _ = c._grouped_einsum(xb)
+            chunks = GROUPED_ROWS["chunks"]
+            y = c.run_step(step, x)
+            launches = GROUPED_ROWS["chunks"] - chunks
+            ref = c.run_step(plain, x)
             torch.cuda.synchronize()
             err = float((y - ref).abs().max())
             where = "%s %s core %s, B=%d" % (label, name, tuple(c.tile_ids.shape), B)
             check(err, float(ref.abs().max()), TOL_PRODUCT["ieee"],
                   "grouped kernel at " + where)
             if launches != block_ell.LAUNCHES["grouped_block_ell_matmul"] or \
-                    not torch.equal(y, c._grouped_launch(xb)[0]):
+                    not torch.equal(y, c.run_step(step, x)):
                 raise AssertionError("grouped kernel at %s: %d launches counted %d, or a "
                                      "rerun differs" % (where, launches, block_ell.LAUNCHES[
                                          "grouped_block_ell_matmul"]))
@@ -2206,10 +2199,11 @@ def grouped_kernel_rows(block_ell, bk, knet, xcs, cores, peaks, label="VGG16 sto
             w = bk.work(c.tile_ids, c.col_blk, TM, TN, n_rb * TM, B, c.tiles.element_size(),
                         peaks)
             r = dict(max_abs_err=err, launches=launches,
-                     ms=cuda_ms(lambda: c._grouped_launch(xb), reps=10)[0],
-                     plain_ms=cuda_ms(lambda: c._grouped_einsum(xb), reps=5)[0],
+                     ms=cuda_ms(lambda: c.run_step(step, x), reps=10)[0],
+                     plain_ms=cuda_ms(lambda: c.run_step(plain, x), reps=5)[0],
                      library_ms=lib_ms, slot_walk_ms=cuda_ms(
-                         lambda: c._apply_rows(x, 0, n_rb), reps=3)[0],
+                         lambda: walk(x, c.tiles, c.tile_ids, c.col_blk, n_rb * TM),
+                         reps=3)[0],
                      bound_ms=w["bound_ms"], bound_by=w["bound_by"])
             r["roofline_pct"] = 100.0 * r["bound_ms"] / r["ms"]
             log("[kernels] grouped_block_ell_matmul at %s: %s" % (where, json.dumps(r)))
@@ -2225,11 +2219,11 @@ SHARED = "4 ranks sharing one card over gloo, not a multi-card time"
 
 
 class fed_operands:
-    """While active, records what a forward feeds the Block-ELL kernels of
-    the BlockSparseOp cores of ``owned`` ((owner, core) pairs: a
-    TpShardedBlockEllOp and its local core, or a layer name and its core):
-    (owner, core, row-blocks [a, b) of the slot walk or None for the
-    periodic mid-section, the padded x), copied as the core hands them on."""
+    """While active, records what a forward feeds the slot walk and the
+    periodic steps of the BlockSparseOp cores of ``owned`` ((owner, core)
+    pairs: a TpShardedBlockEllOp and its local core, or a layer name and its
+    core) through run_step: (owner, core, the step, the padded x), copied as
+    the core hands them on."""
 
     def __init__(self, owned):
         self.owned, self.calls = list(owned), []
@@ -2237,44 +2231,40 @@ class fed_operands:
     def __enter__(self):
         for owner, core in self.owned:
 
-            def rows(x, a, b, owner=owner, core=core, apply=core._apply_rows):
-                self.calls.append((owner, core, (a, b), x.clone()))
-                return apply(x, a, b)
-
-            def mid(x, owner=owner, core=core, apply=core._apply_periodic_mid):
-                self.calls.append((owner, core, None, x.clone()))
-                return apply(x)
-            core._apply_rows, core._apply_periodic_mid = rows, mid
+            def run(step, x, owner=owner, core=core, run_step=core.run_step):
+                if step.kind != "grouped":      # grouped_kernel_rows holds that kernel
+                    self.calls.append((owner, core, step, x.clone()))
+                return run_step(step, x)
+            core.run_step = run
         return self
 
     def __exit__(self, *exc):
         for _, core in self.owned:
-            del core._apply_rows, core._apply_periodic_mid
+            del core.run_step
 
 
 def hold_fed(block_ell, calls, what):
-    """Each recorded kernel operand through the wrapper the op routes it to
-    (under the caller's PRECISION) and through the kernel's plain version
-    (in 'highest': IEEE f32 sums of the product's operands), held within
-    the parity phase's tolerance for the product; returns (entry, line) a
-    call.  Operands the route sends to an einsum (sub-128 tiles, the CPU)
-    have no kernel to hold."""
+    """Each recorded kernel operand through the entry its step names (under
+    the caller's PRECISION) and through the kernel's plain version (in
+    'highest': IEEE f32 sums of the product's operands), held within the
+    parity phase's tolerance for the product; returns (entry, line) a call.
+    Steps that name no entry (sub-128 tiles, the CPU) have no kernel to
+    hold."""
     import keynet_tpu_torch as kt
-    from keynet_tpu_torch.ops.operators import block_ell_route
     lines = []
-    for owner, core, rows, x in calls:
-        TM, TN = core.tileshape
-        if block_ell_route(x.device.type, TM, TN) != "kernel":
+    for owner, core, step, x in calls:
+        if step.entry is None:
             continue
-        if rows is None:
-            s, P, R = core.period
-            args = (x, core.tiles, core.tile_ids, core.col_blk, s, P, R)
-            fn, ref = block_ell.periodic_block_ell_matvec, block_ell.periodic_block_ell_plain
+        TM = core.tileshape[0]
+        fn = getattr(block_ell, step.entry)
+        if step.kind == "periodic":
+            args = (x, core.tiles, core.tile_ids, core.col_blk, *core.period)
+            ref = block_ell.periodic_block_ell_plain
         else:
-            a, b = rows
+            a, b = step.a, step.b
             args = (x, core.tiles, core.tile_ids[a:b], core.col_blk[a:b], (b - a) * TM)
-            fn, ref = block_ell.route(core.tile_ids.shape[1]), block_ell.block_ell_plain
-        product = block_ell.product(fn.__name__, core.tiles.dtype)
+            ref = block_ell.block_ell_plain
+        product = block_ell.product(step.entry, core.tiles.dtype)
         y = fn(*args)
         with global_keys(kt, PRECISION="highest"):
             want = ref(*args, tf32=product == "tf32")
@@ -2282,17 +2272,17 @@ def hold_fed(block_ell, calls, what):
         err, scale = float((y - want).abs().max()), float(want.abs().max())
         tol = TOL_PRODUCT[product]
         check(err, scale, tol, "%s%s: %s vs its plain version"
-              % ("" if isinstance(owner, str) else "[parallel] ", what, fn.__name__))
+              % ("" if isinstance(owner, str) else "[parallel] ", what, step.entry))
         if isinstance(owner, str):
             zero = "%s, %s tiles, %s" % (owner, str(core.tiles.dtype).replace("torch.", ""),
                                          product)
         else:
             zero = "a zero tile put first, ids shifted" if owner.zero_tile_added \
                 else "local id 0 the zero tile"
-        span = "periodic" if rows is None else "%d-%d" % rows
-        lines.append((fn.__name__, "%s: %s at the forward's operand (B=%d, row-blocks %s of "
+        span = step.kind if step.kind == "periodic" else "%d-%d" % step[1:3]
+        lines.append((step.entry, "%s: %s at the forward's operand (B=%d, row-blocks %s of "
                       "%d, KB %d, %d tiles, %s), max|diff| %.3g vs the plain version "
-                      "(scale %.3g)" % (what, fn.__name__, x.shape[0], span,
+                      "(scale %.3g)" % (what, step.entry, x.shape[0], span,
                                         core.tile_ids.shape[0], core.tile_ids.shape[1],
                                         core.tiles.shape[0], zero, err, scale)))
     return lines
@@ -2340,8 +2330,8 @@ def parallel_rank(rank, world, device="cuda"):
         sync(dev)
         for n in launches:
             launches[n] += block_ell.LAUNCHES[n] - before[n]
-        unfed = [tp for tp in tps if O.block_ell_route(dev.type, *tp.local.tileshape)
-                 == "kernel" and not any(c[0] is tp for c in rec.calls)]
+        unfed = [tp for tp in tps if any(step.entry for step in tp.local.schedule(1, dev))
+                 and not any(c[0] is tp for c in rec.calls)]
         if unfed:
             raise AssertionError("[parallel] %s: %d kernel-routed shards of the plan were "
                                  "not applied by the forward" % (what, len(unfed)))
@@ -2355,7 +2345,7 @@ def parallel_rank(rank, world, device="cuda"):
 
     def route(plan, B):
         for tp in S.tp_block_ops(plan):
-            routed.update(entries_of(block_ell, tp.local, B // dp))
+            routed.update(entries_of(tp.local, B // dp))
 
     # (a) the full-width cell: StochasticKeynet AllConvNet at bench's config
     t = time.perf_counter()
@@ -2450,7 +2440,7 @@ def parallel_rank(rank, world, device="cuda"):
     xb = torch.from_numpy(rng.normal(size=(4, A.shape[1])).astype(np.float32)).to(dev)
     held(sharded(tpop.apply, xb, tps=[tpop], what="block-diagonal shard"), bop.apply(xb),
          "block-diagonal Block-ELL")
-    routed.update(entries_of(block_ell, tpop.local, 4))
+    routed.update(entries_of(tpop.local, 4))
     say("(c) 8 x 128 block-diagonal Block-ELL: %d B of tiles a rank of %d B"
         % (tpop.per_chip_tile_bytes(), bop.device_bytes()))
     C, p, T = 8, 16, 9
@@ -2495,7 +2485,7 @@ def parallel_rank(rank, world, device="cuda"):
     xs = torch.from_numpy(rng.normal(size=(4, sop.shape[1])).astype(np.float32)).to(dev)
     held(sharded(tps.apply, xs, tps=S.tp_block_ops([tps]), what="streamed core shard"),
          sop.apply(xs), "streamed masked chain")
-    routed.update(*(entries_of(block_ell, t.local, 4) for t in S.tp_block_ops([tps])))
+    routed.update(*(entries_of(t.local, 4) for t in S.tp_block_ops([tps])))
     say("(g) streamed masked-chain conv 8x16x16: %s" % ranks.decision(tps))
     secs["c-g toy sections"] = time.perf_counter() - t
     return dict(lines=lines, launches=launches, routed=sorted(routed), fed=fed,

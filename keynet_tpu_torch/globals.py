@@ -1,6 +1,8 @@
 """Global configuration for keynet_tpu_torch.
 
-The same GLOBAL keys as the JAX package, so a configuration carries across.
+The JAX package's GLOBAL keys, so a configuration carries across, but the
+switch of its Pallas kernels: BlockSparseOp.schedule decides where the
+port's kernels run.
 ``precision()`` sets PyTorch's float32 flags instead of returning a
 ``lax.Precision``; ``resolve_device`` is the one place that decides where the
 entry points run.
@@ -14,7 +16,6 @@ GLOBAL = {
     "DTYPE": "float32",  # on-device dtype for keyed matrices
     "DENSE_MAX_BYTES": 256 * 1024 * 1024,  # auto-format threshold: dense below this
     "KEEP_HOST_NNZ": 50_000_000,  # keep host CSR for keyed matrices up to this nnz
-    "USE_PALLAS": "auto",  # kept for configuration parity; the port always routes by device
     # conv layers whose Toeplitz nnz exceeds this stream strip-wise instead of
     # materializing
     "STREAM_NNZ": 30_000_000,

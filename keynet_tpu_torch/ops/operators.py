@@ -7,9 +7,8 @@ memory:
   * DenseOp  — one matmul.  Best whenever the dense footprint is small.
   * BlockSparseOp — Block-ELL: (TM, TN) tiles, only nonzero tiles stored,
     deduplicated by content, each tile-row padded to the max tile count.
-    On a CUDA tensor with TM and TN multiples of 128 the slot walk and the
-    periodic mid-section are the hand-written kernels in ops/block_ell.py;
-    other tiles and CPU tensors take their gather + einsum (block_ell_route).
+    BlockSparseOp.schedule says which kernels of ops/block_ell.py, or
+    which of their plain versions, an apply runs.
   * EllOp    — row-wise fixed-K scalar sparse (gather + weighted reduce).
   * ChannelBroadcastOp — I_C ⊗ M for keyed pools with per-channel-identical
     keys, M any of the above.
@@ -20,13 +19,15 @@ moves them (conversion builds every op on the CPU, KeyedModel moves the
 finished ops once).
 """
 
+import collections
+
 import numpy as np
 import scipy.sparse
 import torch
 import torch.nn.functional as F
 
 from ..globals import GLOBAL, kernel_precision
-from ..profiling import GROUPED_ROWS, TAPSUM_STACKED, annotate
+from ..profiling import GROUPED_ROWS, annotate
 
 # Default tile for blocked-sparse keyed matrices.
 DEFAULT_TILE = (128, 128)
@@ -48,21 +49,10 @@ def tile_dtype():
         else torch.float32
 
 
-def block_ell_route(device_type, TM, TN):
-    """How a Block-ELL apply runs its slot walk and periodic mid-section,
-    decided before any launch from the device type and the tile shape alone,
-    as keynet_tpu gates its Pallas kernels (keynet_tpu/ops/operators.py:515,
-    :559): "plain" (the kernels' plain versions) on the CPU; off the CPU
-    "kernel" (the CUDA kernels of ops/block_ell.py, whose wrappers launch on
-    a CUDA device and raise elsewhere) for TM and TN multiples of 128, else
-    "einsum".  "plain" and "einsum" run the same gather + einsum with f32
-    accumulation (keynet_tpu/ops/operators.py:453-482); the kernel wrappers
-    still refuse other tiles."""
-    if device_type == "cpu":
-        return "plain"
-    if TM % 128 == 0 and TN % 128 == 0:
-        return "kernel"
-    return "einsum"
+# One part of a Block-ELL apply (BlockSparseOp.schedule): ``kind`` "rows",
+# "periodic" or "grouped" produces row-blocks [a, b) by launching the
+# ops/block_ell entry named ``entry``, or its plain version where it is None.
+Step = collections.namedtuple("Step", "kind a b entry")
 
 
 class LinearOp:
@@ -207,15 +197,11 @@ class BlockSparseOp(LinearOp):
       y[:, r] = sum_k tiles[tile_ids[r,k]] @ x[:, col_blk[r,k]]
 
     ``period=(s, P, R)`` records row-block periodicity (tile_ids rows
-    s+rho+j*P identical for j in [0,R)); where block_ell_route gives
-    "kernel" the periodic rows launch the periodic kernel
-    (ops/block_ell.periodic_block_ell_matvec), which reads each tile through
-    tile_ids, and elsewhere they apply as one einsum over the period's
-    tiles, expanded once (``_Texp``, not kept beside kernel-routed tiles).
-    Non-periodic ops whose rows repeat in arbitrary order get a grouped-row
-    plan (find_row_groups), applied by the grouped kernel
-    (ops/block_ell.grouped_block_ell_matmul) where _grouped_kernel holds,
-    else as one einsum a bucket.
+    s+rho+j*P identical for j in [0,R)); its rows apply as a periodic step
+    and the period's tiles are expanded once where that step is an einsum
+    (``_Texp``).  Non-periodic ops whose rows repeat in arbitrary order get
+    a grouped-row plan (find_row_groups), which applies as a grouped step.
+    ``schedule`` decides the steps of an apply, ``run_step`` runs one.
     """
     _tensors = ("tiles", "tile_ids", "col_blk")
 
@@ -279,19 +265,25 @@ class BlockSparseOp(LinearOp):
 
     def _sync_texp(self):
         """Keep the period's expanded tile set tiles[tile_ids[s:s+P]]
-        (P, KB, TM, TN) where the periodic einsum uses it (block_ell_route
-        is not "kernel"), within GLOBAL['PERIODIC_EXPAND_BYTES'].  The
-        expansion is the TPU's way round a per-forward gather; the CUDA
-        kernel reads tiles through tile_ids, so none is kept beside
-        kernel-routed tiles."""
-        if self.period is None \
-                or block_ell_route(self.tiles.device.type, *self.tileshape) == "kernel" \
+        (P, KB, TM, TN) off the kernel side, where the periodic einsum uses
+        it, within GLOBAL['PERIODIC_EXPAND_BYTES'].  The expansion is the
+        TPU's way round a per-forward gather; the CUDA kernel reads tiles
+        through tile_ids."""
+        if self.period is None or self._kernel_side(self.tiles.device) \
                 or self._expand_bytes() > int(GLOBAL.get("PERIODIC_EXPAND_BYTES",
                                                          512 << 20)):
             self._Texp = None
         elif self._Texp is None or self._Texp.device != self.tiles.device:
             s, P, _ = self.period
             self._Texp = self.tiles[self.tile_ids[s:s + P].long()]
+
+    def _kernel_side(self, device):
+        """Whether an apply on ``device`` launches the CUDA kernels of
+        ops/block_ell.py: off the CPU, for TM and TN multiples of 128, as
+        keynet_tpu gates its Pallas kernels (keynet_tpu/ops/operators.py:515,
+        :559); the kernel wrappers refuse other tiles."""
+        TM, TN = self.tileshape
+        return torch.device(device).type != "cpu" and TM % 128 == 0 and TN % 128 == 0
 
     def _expand_bytes(self):
         if self.period is None:
@@ -342,145 +334,110 @@ class BlockSparseOp(LinearOp):
                              period=plan.get("period"))
 
     def apply(self, x):
-        B = x.shape[0]
         TM, TN = self.tileshape
         n_out, n_in = self.shape
-        n_cb = _cdiv(n_in, TN)
-        n_rb = _cdiv(n_out, TM)
-        pad_in = n_cb * TN - n_in
+        pad_in = _cdiv(n_in, TN) * TN - n_in
         if pad_in:
             x = F.pad(x, (0, pad_in))
         if self.tiles.dtype != torch.float32:
             x = x.to(self.tiles.dtype)  # bf16 operands, f32 accumulation
         x = x.contiguous()
+        parts = [self.run_step(step, x) for step in self.schedule(x.shape[0], x.device)]
+        y = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        return y[:, :n_out]
 
+    def schedule(self, B, device):
+        """The steps an apply to B rows on ``device`` runs, in order: a
+        tuple of Step(kind, a, b, entry).  Under the period's gate, the
+        rows before it, the periodic step and the rows after it; else, with
+        a grouped-row plan, the grouped step where it reads less than the
+        slot walk; else the slot walk of every row.  On the kernel side
+        (_kernel_side) each step names its ops/block_ell entry, and the
+        grouped step does so for IEEE f32 products only (kernel_precision)."""
+        from . import block_ell
+        TM, TN = self.tileshape
+        n_rb, KB = self.tile_ids.shape
+        kernel = self._kernel_side(device)
+        rows = None
+        if kernel:
+            # by identity, not __name__: a wrapper may stand in for an entry
+            # (the kernel bench counts each launch's work so)
+            walk = block_ell.route(KB)
+            rows = next(n for n in block_ell.ENTRIES if getattr(block_ell, n) is walk)
         if self.period is not None and B <= (self.period[2] - 1) * TM // self.period[2]:
             s, P, R = self.period
-            parts = []
-            if s:
-                parts.append(self._apply_rows(x, 0, s))
-            parts.append(self._apply_periodic_mid(x))
+            steps = (Step("rows", 0, s, rows),) if s else ()
+            steps += (Step("periodic", s, s + P * R,
+                           "periodic_block_ell_matvec" if kernel else None),)
             if s + P * R < n_rb:
-                parts.append(self._apply_rows(x, s + P * R, n_rb))
-            y = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
-            return y[:, :n_out]
+                steps += (Step("rows", s + P * R, n_rb, rows),)
+            return steps
+        if self._rgroups is not None:
+            # no traffic model for the grouped kernel: it reads each distinct
+            # non-zero tile once, and a plan's rows repeat patterns, so there
+            # are fewer of those than the slot walk's slots
+            if kernel and kernel_precision(self.tiles.dtype) == "ieee":
+                return (Step("grouped", 0, n_rb, "grouped_block_ell_matmul"),)
+            # the grouped einsum gathers each pattern's tiles once (write and
+            # read), the x blocks a slot and reorders the output; the slot
+            # walk reads a tile a slot, its gather + einsum writes and reads it
+            it = self.tiles.element_size()
+            tile_b, x_b = TM * TN * it, n_rb * KB * B * TN * it
+            grouped = 2 * sum(G * KB for _, G in self._rgroup_meta) * tile_b + x_b \
+                + 2 * B * n_rb * TM * 4
+            if grouped < (1 if kernel else 2) * n_rb * KB * tile_b + x_b:
+                return (Step("grouped", 0, n_rb, None),)
+        return (Step("rows", 0, n_rb, rows),)
 
-        if self._rgroups is not None and self._grouped_wins(B, x.device):
-            with annotate("keynet.grouped"):
-                return self._apply_grouped(x.reshape(B, n_cb, TN))[:, :n_out]
-
-        return self._apply_rows(x, 0, n_rb)[:, :n_out]
-
-    def _grouped_kernel(self, device):
-        """Whether the grouped-row apply on ``device`` launches the grouped
-        kernel: where block_ell_route gives "kernel" and the tiles multiply
-        as IEEE f32 (f32 tiles under 'highest' and 'high').  bf16 tiles and
-        'default' keep the einsum, as the CPU does."""
-        return block_ell_route(device.type, *self.tileshape) == "kernel" \
-            and kernel_precision(self.tiles.dtype) == "ieee"
-
-    def _grouped_wins(self, B, device):
-        """Traffic model: grouped-row apply vs the slot walk it replaces.
-        The grouped kernel reads each distinct non-zero tile once (the
-        blocks of its group share it in L2) and the per-slot x blocks; the
-        grouped einsum gathers each distinct pattern's tiles once
-        (write+read) plus the per-slot x blocks and a row-block reorder of
-        the output.  The CUDA slot walk reads a tile per slot, the
-        gather+einsum writes and reads it."""
+    def run_step(self, step, x):
+        """One step of ``schedule`` on the padded, cast, contiguous
+        (B, n_cb·TN) x: its entry, looked up in ops/block_ell at the call,
+        or the entry's plain version.  A grouped step runs in the span
+        ``keynet.grouped``, with its launches laid out once a batch size
+        (_rgroup_tables), and is recorded in profiling.GROUPED_ROWS,
+        ``chunks`` counting the kernel's launches or the einsums.  Returns
+        (B, (b-a)·TM) f32."""
+        from . import block_ell
+        kind, a, b, entry = step
         TM, TN = self.tileshape
-        it = self.tiles.element_size()
-        tile_b = TM * TN * it
+        if kind == "rows":
+            fn = block_ell.block_ell_plain if entry is None else getattr(block_ell, entry)
+            return fn(x, self.tiles, self.tile_ids[a:b], self.col_blk[a:b], (b - a) * TM)
+        if kind == "periodic":
+            if entry is None:
+                return block_ell.periodic_block_ell_plain(
+                    x, self.tiles, self.tile_ids, self.col_blk, *self.period, texp=self._Texp)
+            return getattr(block_ell, entry)(x, self.tiles, self.tile_ids, self.col_blk,
+                                             *self.period)
+        B = x.shape[0]
         n_rb, KB = self.tile_ids.shape
-        slots = n_rb * KB
-        distinct_slots = sum(G * KB for _, G in self._rgroup_meta)
-        x_b = slots * B * TN * it
-        if self._grouped_kernel(device):
-            grouped = self._rgroup_reads[1] * tile_b + x_b
-        else:
-            grouped = 2 * distinct_slots * tile_b + x_b + 2 * B * n_rb * TM * 4
-        alt = slots * tile_b + x_b if block_ell_route(device.type, TM, TN) == "kernel" \
-            else 2 * slots * tile_b + x_b
-        return grouped < alt
-
-    def _apply_grouped(self, xb):
-        """Grouped-row apply of the padded x, (B, n_cb, TN): the grouped
-        kernel where _grouped_kernel holds (_grouped_launch), else one
-        batched einsum per multiplicity bucket (_grouped_einsum).  Each call
-        is recorded in profiling.GROUPED_ROWS, ``chunks`` counting the
-        kernel's launches or the einsums.  Returns (B, n_rb·TM) f32."""
-        if self._grouped_kernel(xb.device):
-            y, chunks = self._grouped_launch(xb)
-        else:
-            y, chunks = self._grouped_einsum(xb)
-        TM, TN = self.tileshape
         it = self.tiles.element_size()
-        KB = self.tile_ids.shape[1]
-        nz_slots, n_tiles, x_blocks = self._rgroup_reads
-        GROUPED_ROWS["applies"] += 1
-        GROUPED_ROWS["chunks"] += chunks
-        GROUPED_ROWS["cores"]["%dx%d" % self.shape] = dict(
-            last=GROUPED_ROWS["applies"], B=xb.shape[0], x_itemsize=xb.element_size(),
-            tiles=n_tiles, x_blocks=x_blocks,
-            buckets=[[m, G, KB, TM, TN, it, nz]
-                     for (m, G), nz in zip(self._rgroup_meta, nz_slots)])
-        return y
-
-    def _grouped_launch(self, xb):
-        """The grouped kernel over the whole plan, its launches laid out
-        once per batch size (block_ell.grouped_tables, kept in
-        _rgroup_tables): each pattern's tiles read through its ids, x
-        through col_blk, the outputs written in place.  Returns (y, launches)."""
-        from .block_ell import grouped_block_ell_matmul, grouped_tables
-        B = xb.shape[0]
-        TM, TN = self.tileshape
-        n_rb = self.tile_ids.shape[0]
         patterns, rows = self._rgroups
-        tables = self._rgroup_tables.get(B)
-        if tables is None:
-            if len(self._rgroup_tables) >= 8:   # a few batch sizes are served
-                self._rgroup_tables.clear()
-            tables = self._rgroup_tables[B] = grouped_tables(
-                self._rgroup_meta, patterns, B, TM, TN, self.tiles.dtype, xb.device)
-        y = grouped_block_ell_matmul(xb.reshape(B, -1), self.tiles, patterns, rows,
-                                     self.col_blk, self._rgroup_meta, n_rb * TM, tables)
-        return y, len(tables["launches"])
-
-    def _grouped_einsum(self, xb):
-        """The grouped einsum (block_ell.grouped_block_ell_plain): per
-        bucket, each pattern's tiles gathered once and one einsum a chunk of
-        patterns.  Returns (y, einsums)."""
-        from .block_ell import grouped_block_ell_plain, grouped_chunk
-        B, _, TN = xb.shape
-        n_rb, KB = self.tile_ids.shape
-        it = self.tiles.element_size()
-        y = grouped_block_ell_plain(xb.reshape(B, -1), self.tiles, *self._rgroups,
-                                    self.col_blk, self._rgroup_meta, n_rb * self.tileshape[0])
-        return y, sum(-(-G // grouped_chunk(B, m, G, KB, TN, it))
-                      for m, G in self._rgroup_meta)
-
-    def _apply_rows(self, x, a, b):
-        """Slot walk for row-blocks [a, b) on the padded (B, n_cb*TN) x: the
-        CUDA kernel where block_ell_route gives "kernel", else the gather +
-        einsum of its plain version (ops/block_ell.py).  Returns
-        (B, (b-a)*TM) f32."""
-        from .block_ell import block_ell_plain, route
-        TM, TN = self.tileshape
-        kfn = route(self.tile_ids.shape[1]) \
-            if block_ell_route(x.device.type, TM, TN) == "kernel" else block_ell_plain
-        return kfn(x, self.tiles, self.tile_ids[a:b], self.col_blk[a:b],
-                   (b - a) * TM)
-
-    def _apply_periodic_mid(self, x):
-        """Rows [s, s+P*R) on the padded (B, n_cb*TN) x: the periodic kernel
-        where block_ell_route gives "kernel", else its plain einsum over the
-        expanded period tiles (ops/block_ell.py).  Returns (B, P*R*TM) f32."""
-        from .block_ell import periodic_block_ell_matvec, periodic_block_ell_plain
-        s, P, R = self.period
-        if block_ell_route(x.device.type, *self.tileshape) != "kernel":
-            return periodic_block_ell_plain(x, self.tiles, self.tile_ids,
-                                            self.col_blk, s, P, R, texp=self._Texp)
-        return periodic_block_ell_matvec(x, self.tiles, self.tile_ids,
-                                         self.col_blk, s, P, R)
+        with annotate("keynet.grouped"):
+            if entry is None:
+                y = block_ell.grouped_block_ell_plain(x, self.tiles, patterns, rows,
+                                                      self.col_blk, self._rgroup_meta, n_rb * TM)
+                chunks = sum(-(-G // block_ell.grouped_chunk(B, m, G, KB, TN, it))
+                             for m, G in self._rgroup_meta)
+            else:
+                tables = self._rgroup_tables.get(B)
+                if tables is None:
+                    if len(self._rgroup_tables) >= 8:   # a few batch sizes are served
+                        self._rgroup_tables.clear()
+                    tables = self._rgroup_tables[B] = block_ell.grouped_tables(
+                        self._rgroup_meta, patterns, B, TM, TN, self.tiles.dtype, x.device)
+                y = getattr(block_ell, entry)(x, self.tiles, patterns, rows, self.col_blk,
+                                              self._rgroup_meta, n_rb * TM, tables)
+                chunks = len(tables["launches"])
+            nz_slots, n_tiles, x_blocks = self._rgroup_reads
+            GROUPED_ROWS["applies"] += 1
+            GROUPED_ROWS["chunks"] += chunks
+            GROUPED_ROWS["cores"]["%dx%d" % self.shape] = dict(
+                last=GROUPED_ROWS["applies"], B=B, x_itemsize=x.element_size(),
+                tiles=n_tiles, x_blocks=x_blocks,
+                buckets=[[m, G, KB, TM, TN, it, nz]
+                         for (m, G), nz in zip(self._rgroup_meta, nz_slots)])
+        return y
 
     def row_shard_plan(self, tp):
         """Host-side tile-row partition for tensor-parallel serving
@@ -1031,8 +988,6 @@ class TapSumOp(LinearOp):
             del z   # before the next chunk's Z is allocated
         y.addcmul_(xh, self.bias)
         out[:, n_out:] = xh
-        TAPSUM_STACKED["applies"] += 1
-        TAPSUM_STACKED["chunks"] += len(chunks)
         return out
 
     def nnz(self):

@@ -194,7 +194,7 @@ class TpShardedBlockEllOp(_TpOp):
     """Tensor-parallel Block-ELL apply (keynet_tpu's TpShardedBlockEllOp):
     the rank holds the compacted tile store and local index arrays of its
     contiguous row-block range (BlockSparseOp.row_shard_plan) as a local
-    BlockSparseOp, so block_ell_route sends 128-multiple tiles to the CUDA
+    BlockSparseOp, whose schedule sends 128-multiple tiles to the CUDA
     kernels; x is replicated, and the shards' output rows are all-gathered
     over tp and concatenated along features."""
 

@@ -28,21 +28,16 @@ snapshot's members read and inflated) and ``restore``
 them).  PERF.md §3 maps each span and the record to the benchmark metric
 that reads it (``kbench/spans.py`` charges device time to the spans).
 
-``TAPSUM_STACKED`` (always on) counts ``TapSumOp.apply`` calls
-(``applies``) and the batch chunks they ran as two stacked GEMMs each
-(``chunks``): a card run reads from it that every TapSum link took that
-route.
-
-``GROUPED_ROWS`` (always on) counts ``BlockSparseOp._apply_grouped`` calls
-(``applies``) and the bucket chunks they ran as one einsum each
-(``chunks``), and keeps in ``cores``, under each core's logical shape
-``"<n_out>x<n_in>"``, its last apply: ``last`` (the value of ``applies`` it
+``GROUPED_ROWS`` (always on) counts the grouped steps
+``BlockSparseOp.run_step`` runs (``applies``) and their launches of the
+grouped kernel or einsums (``chunks``), and keeps in ``cores``, under each
+core's logical shape ``"<n_out>x<n_in>"``, its last apply: ``last`` (the value of ``applies`` it
 left), ``B``, ``x_itemsize``, ``tiles`` (the distinct non-zero tiles the
 core holds), ``x_blocks`` (the x blocks its non-zero slots read) and
 ``buckets``, one ``[m, G, KB, TM, TN, tile itemsize, nz]`` per multiplicity
 bucket: G tile_ids patterns of KB slots, each applied to m row-blocks, nz
-of the G·KB slots non-zero.  ``BlockSparseOp.apply`` opens the
-span ``keynet.grouped`` around each call, inside the link span that holds
+of the G·KB slots non-zero.  ``run_step`` opens the span
+``keynet.grouped`` around each grouped step, inside the link span that holds
 the core: the benchmark reads its device time beside the work it computes
 from these shapes."""
 
@@ -54,9 +49,7 @@ import torch
 
 # host seconds of the last load_keynet's phases: {"read": s, "restore": s}
 LOAD_SECONDS = {}
-# TapSumOp.apply calls and the batch chunks they ran: {"applies": n, "chunks": n}
-TAPSUM_STACKED = {"applies": 0, "chunks": 0}
-# BlockSparseOp._apply_grouped calls, their bucket chunks, and each core's
+# BlockSparseOp.run_step's grouped steps, their bucket chunks, and each core's
 # shapes at its last apply (see above)
 GROUPED_ROWS = {"applies": 0, "chunks": 0, "cores": {}}
 _NO_SPAN = contextlib.nullcontext()

@@ -14,7 +14,7 @@ relative) and within the JAX script's 3e-2*max(1, scale) of the source.
 (b) The stochastic recipe at 3x56x56 with the size gates of
 test_torch_vgg_stochastic.py: the same routes as keynet_tpu's, and the gates
 that read the tile itemsize (the grouped-row plan's slot bytes,
-_grouped_wins, the periodic expansion) decide as keynet_tpu's do; chip_smoke's
+the schedule's grouped step, the periodic expansion) decide as keynet_tpu's do; chip_smoke's
 STOCH_ROUTES_BF16 rests on them.  The forward within 1e-3*max(1, scale).
 
 (c) launch_plan for bf16 tiles, which run the slot walk and the periodic
@@ -206,7 +206,8 @@ def stoch():
 def test_stochastic_routes_and_gates_equal(stoch):
     """The stochastic recipe in bf16 routes as in f32 (ROUTES) in both
     packages, and each core's itemsize gates decide alike: a grouped-row plan
-    or none (ROWGROUP_MIN_SLOT_BYTES), _grouped_wins at B = 1, 8, 32, 1024,
+    or none (ROWGROUP_MIN_SLOT_BYTES), the grouped step of the schedule on
+    the CPU against keynet_tpu's _grouped_wins at B = 1, 8, 32, 1024,
     and the periodic expansion (_Texp within PERIODIC_EXPAND_BYTES)."""
     oj, ot = _layer_ops(stoch["knj"], stoch["sj"]), _layer_ops(stoch["knt"], stoch["st"])
     assert {k: route_kinds(o) for k, o in oj.items()} == ROUTES
@@ -223,7 +224,8 @@ def test_stochastic_routes_and_gates_equal(stoch):
                 grouped += 1
                 assert ct._rgroup_meta == cj._rgroup_meta
                 for B in (1, 8, 32, 1024):
-                    assert ct._grouped_wins(B, torch.device("cpu")) == cj._grouped_wins(B), (k, B)
+                    steps = ct.schedule(B, torch.device("cpu"))
+                    assert (steps[0].kind == "grouped") == cj._grouped_wins(B), (k, B)
     assert grouped
 
 

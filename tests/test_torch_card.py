@@ -397,16 +397,16 @@ def test_sub128_tiles_on_card(t):
     periodic mid-sections at B = 3."""
     _needs_card()
     import keynet_tpu_torch as kt
-    from keynet_tpu_torch.ops.operators import PermutedBlockSparseOp, block_ell_route
+    from keynet_tpu_torch.ops.operators import PermutedBlockSparseOp
     net, s, k = _small_tile_keynet(kt, t, "cuda")
     _, s_cpu, k_cpu = _small_tile_keynet(kt, t, "cpu")
     cores = [l.op().inner for l in k.layers().values()
              if l != "relu" and isinstance(l.op(), PermutedBlockSparseOp)]
     assert cores and all(c.tileshape == (t, t) for c in cores)
-    assert all(block_ell_route("cuda", *c.tileshape) == "einsum" for c in cores)
     if t == 16:
         assert any(c.period is not None for c in cores)
     B = 3 if t == 16 else 64
+    assert not any(step.entry for c in cores for step in c.schedule(B, torch.device("cuda")))
     x = np.random.default_rng(t).standard_normal((B, *net.inshape)).astype(np.float32)
     y = k.forward(s.fromtensor(torch.from_numpy(x).cuda()).encrypt().tensor())
     ys = net.forward(torch.from_numpy(x).cuda())
@@ -520,7 +520,7 @@ def test_stochastic_ops_on_card(case, B):
     conv2_1, docs/SERVING.md:206-207) gives the same result on the card as
     on the CPU."""
     _needs_card()
-    from keynet_tpu_torch.ops.operators import EllOp
+    from keynet_tpu_torch.ops.operators import EllOp, Step
     rng = np.random.default_rng(B)
     if case == "ell_k16":
         n_in, n_out = 20_000, 30_000
@@ -536,10 +536,12 @@ def test_stochastic_ops_on_card(case, B):
     n_cb = -(-core.shape[1] // TN)
     n_rb = core.tile_ids.shape[0]
     x = torch.from_numpy(rng.standard_normal((B, n_cb * TN)).astype(np.float32)).cuda()
+    grouped, = core.schedule(B, x.device)
+    walk = Step("rows", 0, n_rb, block_ell.route(core.tile_ids.shape[1]).__name__)
     block_ell.reset_launches()
-    walk = core._apply_rows(x, 0, n_rb)
-    assert block_ell.LAUNCHES[block_ell.route(core.tile_ids.shape[1]).__name__] == 1
-    _close(core._apply_grouped(x.reshape(B, n_cb, TN)), walk, 1e-5)
+    y = core.run_step(walk, x)
+    assert block_ell.LAUNCHES[walk.entry] == 1
+    _close(core.run_step(grouped, x), y, 1e-5)
 
 
 @pytest.mark.cuda

@@ -179,9 +179,19 @@ def test_tiled_factories_match_jax(factory, dense_max):
 def test_block_ell_route(device, TM, TN, want):
     """Sub-128 tiles take the einsum on a CUDA device and never reach a
     kernel (whose wrappers refuse them), as keynet_tpu keeps them off its
-    Pallas kernels."""
-    from keynet_tpu_torch.ops.operators import block_ell_route
-    assert block_ell_route(device, TM, TN) == want
+    Pallas kernels: a core's schedule names an entry for its periodic step
+    (B under the period's gate) and its slot walk only on the kernel side
+    ("kernel"), and the plain versions elsewhere."""
+    from keynet_tpu_torch.ops.operators import BlockSparseOp, Step
+    tiles = torch.zeros((2, TM, TN))
+    tiles[1] = 1.0
+    op = BlockSparseOp(tiles, [[1], [1]], [[0], [1]], (2 * TM, 2 * TN), (TM, TN),
+                       2 * TM * TN, period=(0, 1, 2))
+    kernel = want == "kernel"
+    assert op.schedule(1, device) == (
+        Step("periodic", 0, 2, "periodic_block_ell_matvec" if kernel else None),)
+    assert op.schedule(TM, device) == (
+        Step("rows", 0, 2, "block_ell_matmul_xres2" if kernel else None),)
 
 
 def _small_tile_spec(m):

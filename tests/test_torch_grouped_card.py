@@ -41,7 +41,8 @@ def test_grouped_kernel_on_masked_core(masked, B):
     rng = np.random.default_rng(B)
     x = torch.from_numpy(rng.standard_normal((B, n_in)).astype(np.float32)).cuda()
     xp = torch.nn.functional.pad(x, (0, n_cb * TN - n_in))
-    assert core._grouped_kernel(x.device) and core._grouped_wins(B, x.device)
+    grouped, = core.schedule(B, x.device)
+    assert grouped == ("grouped", 0, n_rb, "grouped_block_ell_matmul")
     block_ell.reset_launches()
     chunks = profiling.GROUPED_ROWS["chunks"]
     y = core.apply(x)
@@ -52,8 +53,8 @@ def test_grouped_kernel_on_masked_core(masked, B):
     assert profiling.GROUPED_ROWS["chunks"] == chunks + n_launch
     assert sum(v for k, v in block_ell.LAUNCHES.items()
                if k != "grouped_block_ell_matmul") == 0
-    einsum, _ = core._grouped_einsum(xp.reshape(B, n_cb, TN))
-    walk = core._apply_rows(xp, 0, n_rb)
+    einsum = core.run_step(grouped._replace(entry=None), xp)
+    walk = core.run_step(grouped._replace(kind="rows", entry=block_ell.route(KB).__name__), xp)
     torch.cuda.synchronize()
     _close(y, einsum[:, :n_out], 1e-5)
     _close(y, walk[:, :n_out], 1e-5)

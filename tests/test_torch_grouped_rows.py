@@ -1,5 +1,5 @@
-"""The grouped-row apply's span and counter (BlockSparseOp._apply_grouped,
-profiling.GROUPED_ROWS) on the CPU, and the benchmark's reading of them
+"""The grouped-row apply's span and counter (BlockSparseOp.run_step's
+grouped step, profiling.GROUPED_ROWS) on the CPU, and the benchmark's reading of them
 (kbench/grouped.py, the metrics grouped_ms.batch and
 grouped_roofline.batch): the span opens only under a profiler, inside the
 link span that holds the core, and changes no output bit; the counter's
@@ -24,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import keynet_tpu_torch as kt
 from keynet_tpu_torch import profiling
-from keynet_tpu_torch.ops.operators import BlockSparseOp, ChainedOp
+from keynet_tpu_torch.ops.operators import BlockSparseOp, ChainedOp, Step
 from kbench import grouped, harness, spans, yardstick
 
 TM = TN = 8
@@ -61,8 +61,13 @@ def _core(patterns, pad_col=False):
         else:
             G["ROWGROUP_MIN_SLOT_BYTES"] = old
     assert op._rgroup_meta == ((4, 2), (8, 2), (16, 2), (32, 1), (40, 1))
-    assert op._grouped_wins(B, torch.device("cpu"))
+    assert op.schedule(B, torch.device("cpu")) == (Step("grouped", 0, N_RB, None),)
     return op
+
+
+def _walk(op, x):
+    """The slot walk's plain version over every row-block of ``op``."""
+    return op.run_step(Step("rows", 0, N_RB, None), x)
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +107,7 @@ def test_span_opens_only_under_a_profiler(core, x, monkeypatch):
     assert calls == [grouped.SPAN] and _names(prof) == [grouped.SPAN]
     assert torch.equal(plain, traced)
     # the grouped-row apply is the slot walk's sum, row-blocks in place
-    assert torch.allclose(plain, core._apply_rows(x, 0, N_RB), rtol=1e-5, atol=1e-5)
+    assert torch.allclose(plain, _walk(core, x), rtol=1e-5, atol=1e-5)
 
 
 def test_span_sits_inside_its_link(core, x):
@@ -146,7 +151,7 @@ def test_counter_by_hand_padded(padded_core, x):
     """Padding slots (tile 0) are no work, a tile shared between patterns
     is read once, and x blocks only zero slots name are not read: the count
     of yardstick.slot_walk_work, whose ids are tile_ids and col_blk."""
-    want = padded_core._apply_rows(x, 0, N_RB)
+    want = _walk(padded_core, x)
     y = padded_core.apply(x)
     assert torch.allclose(y, want, rtol=1e-5, atol=1e-5)
     c = profiling.GROUPED_ROWS
@@ -328,8 +333,8 @@ def test_grouped_entry_plain_on_the_cpu(which, x, request):
     y = block_ell.grouped_block_ell_matmul(x, op.tiles, patterns, rows, op.col_blk,
                                            op._rgroup_meta, N_RB * TM)
     assert sum(block_ell.LAUNCHES.values()) == 0
-    assert not op._grouped_kernel(x.device) and torch.equal(op.apply(x), y)
-    assert torch.allclose(y, op._apply_rows(x, 0, N_RB), rtol=1e-5, atol=1e-5)
+    assert op.schedule(B, x.device)[0].entry is None and torch.equal(op.apply(x), y)
+    assert torch.allclose(y, _walk(op, x), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="do not fit"):
         block_ell.grouped_block_ell_matmul(x, op.tiles, patterns, rows[1:], op.col_blk,
                                            op._rgroup_meta, N_RB * TM)
@@ -412,23 +417,28 @@ def vgg_core(request):
 
 @pytest.mark.parametrize("B", [1, 8, 32, 128])
 def test_grouped_wins_takes_the_kernel(vgg_core, B, monkeypatch):
-    """Under the kernel route with f32 tiles in 'highest' and 'high' the
-    grouped-row apply launches the grouped kernel, and its traffic beats the
-    slot walk's at the VGG cores' plans; under 'default' (tf32 products)
-    and on the CPU the einsum keeps its own model."""
+    """On the kernel side with f32 tiles in 'highest' and 'high' the
+    schedule is the grouped kernel's one step; under 'default' (tf32
+    products) and on the CPU the grouped einsum keeps its own model."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    n_rb, KB = vgg_core.tile_ids.shape
     G = kt.globals.GLOBAL
     for mode in ("highest", "high"):
         monkeypatch.setitem(G, "PRECISION", mode)
-        assert vgg_core._grouped_kernel(cuda) and vgg_core._grouped_wins(B, cuda)
-        assert not vgg_core._grouped_kernel(cpu)
-    monkeypatch.setitem(G, "PRECISION", "default")
-    assert not vgg_core._grouped_kernel(cuda)
-    # the einsum's model: the gathers' write and read, the reorder
+        assert vgg_core.schedule(B, cuda) == (Step("grouped", 0, n_rb,
+                                                   "grouped_block_ell_matmul"),)
+    # the einsum's model: the gathers' write and read, the reorder, against
+    # the slot walk's tile a slot (its gather's write and read on the CPU)
     TM, TN = vgg_core.tileshape
-    n_rb, KB = vgg_core.tile_ids.shape
     tile_b = TM * TN * 4
     x_b = n_rb * KB * B * TN * 4
     einsum = 2 * sum(G * KB for _, G in vgg_core._rgroup_meta) * tile_b + x_b \
         + 2 * B * n_rb * TM * 4
-    assert vgg_core._grouped_wins(B, cuda) == (einsum < n_rb * KB * tile_b + x_b)
+    walk = "block_ell_matmul_xresd" if KB >= 8 else "block_ell_matmul_xres2"
+    for device, alt in ((cpu, 2), (cuda, 1)):
+        if device is cuda:
+            monkeypatch.setitem(G, "PRECISION", "default")
+        want = (Step("grouped", 0, n_rb, None),) \
+            if einsum < alt * n_rb * KB * tile_b + x_b \
+            else (Step("rows", 0, n_rb, walk if device is cuda else None),)
+        assert vgg_core.schedule(B, device) == want, device

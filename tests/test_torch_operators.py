@@ -205,9 +205,7 @@ TAPSUM_CASES = {"stride2": (3, 9, 4, 4, 16, 4), "c1_ne_c2": (4, 9, 3, 5, 9, 9),
 @pytest.mark.parametrize("case", sorted(TAPSUM_CASES))
 def test_tapsum_stacked(case):
     """The stacked-GEMM apply against keynet_tpu's per-tap TapSumOp; ``K``
-    reads back the published (T, C2, C1) factors; the counter moves by one
-    apply and the chunks it ran."""
-    from keynet_tpu_torch import profiling
+    reads back the published (T, C2, C1) factors."""
     B, T, C1, C2, p1, p2 = TAPSUM_CASES[case]
     rng = np.random.default_rng(len(case))
     K = rng.standard_normal((T, C2, C1)).astype(np.float32)
@@ -223,11 +221,62 @@ def test_tapsum_stacked(case):
     if case == "chunked":
         sizes = {c1 - c0 for c0, c1 in chunks}
         assert len(chunks) > 1 and len(sizes) > 1, chunks
-    before = dict(profiling.TAPSUM_STACKED)
     xj, xt = _x(C1 * p1 + 1, B)
     _close(tj.apply(xj), tt.apply(xt))
-    assert profiling.TAPSUM_STACKED["applies"] == before["applies"] + 1
-    assert profiling.TAPSUM_STACKED["chunks"] == before["chunks"] + len(chunks)
+
+
+# case: (B, the kinds of its schedule's steps); 8x8 tiles, KB = 4
+SCHEDULE_CASES = {"periodic_under_gate": (2, ["rows", "periodic", "rows"]),
+                  "periodic_over_gate": (8, ["rows"]), "grouped": (4, ["grouped"]),
+                  "rows": (4, ["rows"])}
+
+
+def _schedule_core(case, monkeypatch):
+    """A Block-ELL core of 8x8 tiles for ``case``: 8 row-blocks with the
+    period (1, 2, 3) and one row after it, 128 row-blocks repeating 8
+    patterns 16 times each under a grouped-row plan, or 8 row-blocks of
+    their own; its dense matrix."""
+    rng = np.random.default_rng(len(case))
+    TM = TN = KB = n_cb = 8
+    if case == "grouped":
+        monkeypatch.setitem(GT, "ROWGROUP_MIN_SLOT_BYTES", 1 << 10)
+        ids = rng.integers(0, 20, (8, KB))[np.repeat(np.arange(8), 16)]
+        rng.shuffle(ids)
+    else:
+        ids = rng.integers(0, 20, (8, KB))
+        if case.startswith("periodic"):
+            ids[3:7] = np.tile(ids[1:3], (2, 1))
+    cols = rng.integers(0, n_cb, ids.shape)
+    tiles = rng.standard_normal((20, TM, TN)).astype(np.float32)
+    tiles[0] = 0.0
+    n_rb = len(ids)
+    W = np.zeros((n_rb * TM, n_cb * TN), np.float32)
+    for r, c, i in zip(np.repeat(np.arange(n_rb), KB), cols.ravel(), ids.ravel()):
+        W[r * TM:(r + 1) * TM, c * TN:(c + 1) * TN] += tiles[i]
+    shape = (n_rb * TM - 3, n_cb * TN - 5)
+    op = ot.BlockSparseOp(tiles, ids, cols, shape, (TM, TN), int((ids > 0).sum()) * TM * TN,
+                          period=(1, 2, 3) if case.startswith("periodic") else None)
+    return op, W[:shape[0], :shape[1]]
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_CASES))
+def test_schedule_is_apply(case, monkeypatch):
+    """apply(x) on the CPU is run_step over schedule(B, cpu) on the padded
+    x, the steps' outputs side by side and cut to n_out: each step covers
+    the row-blocks after the one before, none names a kernel entry, and the
+    result is x @ W^T."""
+    B, kinds = SCHEDULE_CASES[case]
+    op, W = _schedule_core(case, monkeypatch)
+    steps = op.schedule(B, torch.device("cpu"))
+    assert [step.kind for step in steps] == kinds
+    assert [step.a for step in steps] == [0] + [step.b for step in steps[:-1]]
+    assert steps[-1].b == op.tile_ids.shape[0]
+    assert all(step.entry is None for step in steps)
+    _, x = _x(op.shape[1], B, seed=B)
+    xp = torch.nn.functional.pad(x, (0, 5))
+    y = torch.cat([op.run_step(step, xp) for step in steps], dim=1)[:, :op.shape[0]]
+    assert torch.equal(op.apply(x), y)
+    _close(x.numpy() @ W.T, y)
 
 
 @pytest.mark.parametrize("stride,groups", [(1, 1), (2, 1), (2, 4)])

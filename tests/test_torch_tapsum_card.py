@@ -9,7 +9,6 @@ batch small enough to run quickly but large enough to be cut into chunks."""
 import pytest
 import torch
 
-from keynet_tpu_torch import profiling
 from keynet_tpu_torch.ops.operators import TapSumOp
 
 B, T, C1, C2, P1, P2 = 16, 9, 96, 96, 1024, 1024
@@ -45,8 +44,7 @@ def _peak_bytes(fn):
 @pytest.mark.cuda
 def test_tapsum_stacked_on_card():
     """Within 1e-5 (relative to the largest output) of the float64 per-tap
-    product, no more device memory at its peak than the per-tap sum, and
-    one apply with all its chunks on the counter."""
+    product, and no more device memory at its peak than the per-tap sum."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100: python3 chip_smoke.py)")
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -59,11 +57,8 @@ def test_tapsum_stacked_on_card():
     chunks = op.chunks(B)
     assert len(chunks) > 1, chunks
 
-    before = dict(profiling.TAPSUM_STACKED)
     y = op.apply(x)
     torch.cuda.synchronize()
-    assert profiling.TAPSUM_STACKED["applies"] == before["applies"] + 1
-    assert profiling.TAPSUM_STACKED["chunks"] == before["chunks"] + len(chunks)
 
     ref = _per_tap(K.double(), S.double(), bias.double(), x.double())
     err = float((y.double() - ref).abs().max() / ref.abs().max())

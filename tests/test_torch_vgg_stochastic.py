@@ -191,8 +191,9 @@ def test_forward_matches_jax(nets, B):
     TN = core.tileshape[1]
     xb = torch.from_numpy(np.random.default_rng(B + 1).standard_normal(
         (B, -(-core.shape[1] // TN) * TN)).astype(np.float32))
-    n_rb = core.tile_ids.shape[0]
-    _close(core._apply_rows(xb, 0, n_rb), core._apply_grouped(xb.reshape(B, -1, TN)))
+    grouped, = core.schedule(B, xb.device)
+    assert grouped.kind == "grouped"
+    _close(core.run_step(grouped._replace(kind="rows"), xb), core.run_step(grouped, xb))
 
 
 @pytest.mark.parametrize("B", [1, 8, 32])

@@ -202,14 +202,14 @@ def test_served_snapshot_matches_reference(snapshot):
 @pytest.mark.cuda
 def test_served_snapshot_on_card(snapshot):
     """The same snapshot restored on the card: the grouped-row apply taken
-    (B=8 is under conv2_2's gate, _grouped_wins, on the card), the output
+    (B=8 is under conv2_2's gate, its schedule, on the card), the output
     within TOL of the reference computed on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100)")
     sensor, knet = _load(snapshot["path"], "cuda")
     assert routes(sensor, knet) == ROUTES
     core = grouped_cores(knet)["conv2_2"][0]
-    assert core._grouped_wins(B, torch.device("cuda"))
+    assert [step.kind for step in core.schedule(B, torch.device("cuda"))] == ["grouped"]
     xc = sensor.fromtensor(snapshot["x"].cuda()).encrypt().tensor()
     before = profiling.GROUPED_ROWS["applies"]
     y = knet.forward(xc)
