@@ -2819,16 +2819,16 @@ def phase_outputs(kt, path, against=None):
 # --------------------------------------------------------------- A/B
 # library -> (a marker of the checkout's launch signature, int arguments of
 # an older launch that lacks it)
-AB_LIBS = {"block_ell": ("int BT, int smem", 8), "periodic_block_ell": ("int BT, int smem", 9),
+AB_LIBS = {"block_ell": ("int BT, int smem", 8), "periodic_block_ell": ("int n_uniq", 11),
            "block_ell_xres": ("int n_uniq", 8), "block_ell_grid": ("int n_uniq", 8)}
 
 
 class _LegacyLib:
     """A library built from an older source whose launch takes the first
     ``n_int`` of the checkout's int arguments and the stream: the slot walk
-    and periodic kernel before launch_plan (no row tile, no shared memory),
-    xres and grid before their TMA versions (no n_uniq, row tile, shared
-    memory, G, mode or copy counter)."""
+    before launch_plan (no row tile, no shared memory), the periodic kernel
+    before its f32 TMA ring (no n_uniq), xres and grid before their TMA
+    versions (no n_uniq, row tile, shared memory, G, mode or copy counter)."""
 
     def __init__(self, block_ell, name, lib, n_int):
         import ctypes

@@ -1,8 +1,8 @@
 // The register-tiled FMA core of the Block-ELL kernels: the slot walk
-// (block_ell.cu) and the periodic kernel (periodic_block_ell.cu) on a
-// cp.async ring, xres (block_ell_xres.cu) and grid (block_ell_grid.cu) on
-// TMA copies; 128-byte-wide panels, with the row tile BT a template
-// parameter.
+// (block_ell.cu) on a cp.async ring, the periodic kernel's f32 walk
+// (periodic_block_ell.cu) on TMA tile copies and cp.async x copies, xres
+// (block_ell_xres.cu) and grid (block_ell_grid.cu) on TMA copies;
+// 128-byte-wide panels, with the row tile BT a template parameter.
 //
 // A block computes a BT x 128 output tile: BT rows (images, or (rep, image)
 // pairs) by 128 output columns (rows of a tile).  Each step multiplies a

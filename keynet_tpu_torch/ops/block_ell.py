@@ -96,7 +96,7 @@ SOURCES = {"block_ell": os.path.join(_CSRC, "block_ell.cu"),
 _LAUNCH_FN = {"block_ell": ("block_ell_slot_walk", 5, 10, 1),
               "block_ell_xres": ("block_ell_xres", 5, 11, 1),
               "block_ell_grid": ("block_ell_grid", 5, 13, 2),
-              "periodic_block_ell": ("periodic_block_ell", 5, 11, 1),
+              "periodic_block_ell": ("periodic_block_ell", 5, 12, 1),
               "grouped_block_ell": ("grouped_block_ell", 7, 10, 1)}
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 _SMEM_MAX = 232448  # shared memory one block may use on sm_90
@@ -108,6 +108,9 @@ TILE_THREADS = {8: 64, 16: 128, 32: 128, 64: 128, 128: 256}
 WGMMA_THREADS = 256  # the tensor-core slot walk and periodic kernel: two warpgroups
 GRID_CONSUMERS = 256  # the grid kernel's consumer threads (it runs one block an SM)
 STAGES = 3
+# the periodic kernel's f32 (IEEE) ring on TMA and mbarriers: its depth at
+# each row tile (csrc/periodic_block_ell.cu, fma_stages)
+PERIODIC_STAGES = {8: 4, 16: 6, 32: 5, 64: 4, 128: 7}
 _PANEL_BYTES = 128  # contraction bytes one ring step stages (32 f32, 64 bf16)
 _BM = 128           # output columns a block owns
 _TMA_ALIGN = 1024   # slack to align swizzled TMA and wgmma panels
@@ -163,10 +166,13 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
       grid k groups (at most 8) up to GRID_CONSUMERS consumer threads plus
       its producer, a warp beside 128 consumers, a warpgroup beside 256;
     - smem, the dynamic shared memory of a block (the launch refuses fewer
-      bytes than the layout needs).  Slot walk, periodic and grouped on
-      the FMA core: the cp.async ring, STAGES x (BT + 128) panel rows of
-      128 + 16 bytes, or the k groups' fold if larger, + the periodic and
-      grouped kernels' two slots of row offsets.  With a "bf16" or "tf32"
+      bytes than the layout needs).  Slot walk and grouped on the FMA
+      core: the cp.async ring, STAGES x (BT + 128) panel rows of 128 + 16
+      bytes, or the k groups' fold if larger, + the grouped kernel's two
+      slots of row offsets.  Periodic with an "ieee" product: its TMA ring,
+      1024 bytes of slack, PERIODIC_STAGES[BT] (stages in the plan)
+      swizzled stages of (BT + 128) rows of 128 bytes and two mbarriers a
+      stage (the fold reuses the ring).  With a "bf16" or "tf32"
       product the slot walk and periodic kernel run on the tensor cores
       (csrc/block_ell_wgmma.cuh): WGMMA_THREADS threads at every BT, the
       ring's STAGES x (BT + 128) rows of 128 bytes, 128-byte swizzled, after
@@ -210,7 +216,10 @@ def launch_plan(rows, cols, TM, TN, dtype, kernel="slot_walk"):
         threads = WGMMA_THREADS
         smem = _TMA_ALIGN + STAGES * (BT + _BM) * _PANEL_BYTES \
             + (2 * BT * 8 if kernel == "periodic" else 0)
-    elif kernel in ("slot_walk", "periodic", "grouped"):
+    elif kernel == "periodic":
+        plan["stages"] = PERIODIC_STAGES[BT]
+        smem = _TMA_ALIGN + plan["stages"] * ((BT + _BM) * _PANEL_BYTES + 2 * 8)
+    elif kernel in ("slot_walk", "grouped"):
         ring = STAGES * (BT + _BM) * (_PANEL_BYTES + 16)
         smem = max(ring, fold) + (2 * BT * 8 if kernel != "slot_walk" else 0)
     elif kernel == "xres":
@@ -614,7 +623,7 @@ def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):
     if x_padded.device.type == "cpu":
         return periodic_block_ell_plain(x_padded, tiles, tile_ids, col_blk, s, P, R)
     x, tiles, ids, cols = _operands(name, x_padded, tiles, tile_ids, col_blk)
-    _, TM, TN = tiles.shape
+    n_uniq, TM, TN = tiles.shape
     KB = ids.shape[1]
     B, n_cols = x.shape
     out = torch.empty((B, P * R * TM), dtype=torch.float32, device=x.device)
@@ -624,7 +633,7 @@ def periodic_block_ell_matvec(x_padded, tiles, tile_ids, col_blk, s, P, R):
     _launched(name, "periodic_block_ell", _lib("periodic_block_ell").periodic_block_ell(
         x.data_ptr(), tiles.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         out.data_ptr(), B, n_cols, KB, TM, TN, s, P, R, plan["kind"], plan["BT"], plan["smem"],
-        torch.cuda.current_stream(x.device).cuda_stream), plan["kind"])
+        n_uniq, torch.cuda.current_stream(x.device).cuda_stream), plan["kind"])
     return out
 
 

@@ -248,7 +248,8 @@ def test_launch_plan_bf16_tensor_cores(BT, kernel):
     bytes of slack + STAGES stages of (BT + 128) swizzled rows of 128 bytes,
     each stage a multiple of 1024 bytes (wgmma's swizzled panels stay
     aligned), + the periodic kernel's 16·BT bytes of row offsets; no fold.
-    f32 plans keep their threads and ring."""
+    f32 plans keep their threads and their FMA-core rings (the periodic
+    kernel's on TMA)."""
     per = 16 * BT if kernel == "periodic" else 0
     for TN in (128, 256):
         plan = block_ell.launch_plan(BT, 5 * 128, 128, TN, torch.bfloat16, kernel)
@@ -259,5 +260,9 @@ def test_launch_plan_bf16_tensor_cores(BT, kernel):
         group = 16 * (BT // 8)
         fold = (block_ell.TILE_THREADS[BT] // group - 1) * group * 64 * 4
         assert f32["threads"] == block_ell.TILE_THREADS[BT]
-        assert f32["smem"] == max(block_ell.STAGES * (BT + 128) * 144, fold) + per
+        if kernel == "periodic":    # its f32 TMA ring (test_torch_periodic.py)
+            S = block_ell.PERIODIC_STAGES[BT]
+            assert f32["smem"] == 1024 + S * ((BT + 128) * 128 + 16)
+        else:
+            assert f32["smem"] == max(block_ell.STAGES * (BT + 128) * 144, fold)
         assert f32["grid"] == plan["grid"]

@@ -156,9 +156,13 @@ def test_launch_plan(rows, dtype, tm):
     assert 0 < plan["smem"] <= 232448
     assert plan["grid"][0] * BT >= rows > (plan["grid"][0] - 1) * BT
     assert plan["grid"][1] * 128 >= n_out > (plan["grid"][1] - 1) * 128
-    # the periodic kernel's plan adds its two slots of row offsets
+    # the periodic kernel's plan: bf16 adds its two slots of row offsets, f32
+    # takes its TMA ring
     per = block_ell.launch_plan(rows, n_out, tm, tm, dtype, kernel="periodic")
-    assert per["BT"] == BT and per["smem"] == plan["smem"] + 16 * BT
+    S = block_ell.PERIODIC_STAGES[BT]
+    assert per["BT"] == BT and per["smem"] == (
+        plan["smem"] + 16 * BT if dtype == torch.bfloat16
+        else 1024 + S * ((BT + 128) * 128 + 16))
     with pytest.raises(ValueError):        # more 128-column chunks than grid.y holds
         block_ell.launch_plan(rows, 65536 * 128, tm, tm, dtype)
     with pytest.raises(ValueError):        # more row tiles than grid.x holds

@@ -162,12 +162,15 @@ def test_kernel_skips_zero_slots():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,B", [(1, 1), (8, 1), (3, 3), (8, 2), (17, 1), (31, 1),
-                                 (11, 3), (7, 5), (8, 8), (13, 5), (31, 5), (7, 20)])
+                                 (11, 3), (7, 5), (8, 8), (13, 5), (31, 5), (7, 20),
+                                 (31, 24), (7, 33), (3, 100), (31, 32)])
 def test_periodic_kernel_matches_plain_on_card(R, B):
     """The periodic CUDA kernel against its plain version in f32 and bf16,
     with s > 0, P not a multiple of anything, id-0 slots and an all-zero
     period row, at R·B on both sides of every row tile (1, 8 | 9, 16 | 17,
-    31 | 33, 35, 64 | 65, 155, 140)."""
+    31 | 33, 35, 64 | 65, 155, 140, 744, 231, 300, 992), with rep
+    boundaries inside a row tile and inside an 8-row group of it (B = 24,
+    33, 100), and two launches equal bit for bit."""
     _needs_card()
     rng = np.random.default_rng(R * 100 + B)
     s, P, KB, n_uniq, n_cb = 2, 5, 3, 9, 11
@@ -188,6 +191,7 @@ def test_periodic_kernel_matches_plain_on_card(R, B):
         torch.cuda.synchronize()
         _close(y, ref, tol)
         assert bool((y[:, TM:2 * TM] == 0).all())
+        assert torch.equal(block_ell.periodic_block_ell_matvec(x, t, ids, cols, s, P, R), y)
 
 
 @pytest.mark.cuda

@@ -4,6 +4,9 @@ runs it), and the port's periodic BlockSparseOp apply against keynet_tpu's.
 The CUDA kernel itself runs in chip_smoke.py and in the card-only test of
 tests/test_torch_block_ell.py."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import scipy.sparse
@@ -80,16 +83,45 @@ def test_cpu_wrapper_uses_plain_version_and_does_not_count():
 def test_periodic_launch_plan(R, B):
     """The periodic kernel's plan tiles the R·B (rep, image) pairs with the
     least instantiated row tile that holds them (capped at 128), one block
-    column per 128 columns of a period row's P·TM, and adds the two slots of
-    8-byte row offsets to the slot walk's shared memory."""
+    column per 128 columns of a period row's P·TM.  bf16 adds the two slots
+    of 8-byte row offsets to the slot walk's shared memory.  f32 (the IEEE
+    FMA core) takes the slot walk's threads and its own TMA ring: 1024 bytes
+    of slack, PERIODIC_STAGES[BT] stages of (BT + 128) rows of 128 bytes and
+    two 8-byte mbarriers a stage, the k groups' fold inside the ring, and no
+    more bytes than keep as many blocks an SM as before."""
     P, TM = 784, 128
     tiles = sorted(block_ell.TILE_THREADS)
     for dtype in (torch.float32, torch.bfloat16):
         plan = block_ell.launch_plan(R * B, P * TM, TM, 128, dtype, kernel="periodic")
-        assert plan["BT"] == min([t for t in tiles if t >= R * B] or [tiles[-1]])
-        assert plan["grid"] == (-(-R * B // plan["BT"]), P)
+        BT = plan["BT"]
+        assert BT == min([t for t in tiles if t >= R * B] or [tiles[-1]])
+        assert plan["grid"] == (-(-R * B // BT), P)
         walk = block_ell.launch_plan(R * B, P * TM, TM, 128, dtype)
-        assert plan["smem"] == walk["smem"] + 16 * plan["BT"] <= 232448
+        if dtype == torch.bfloat16:
+            assert plan["smem"] == walk["smem"] + 16 * BT <= 232448
+            continue
+        S = block_ell.PERIODIC_STAGES[BT]
+        assert plan["stages"] == S >= 3 and plan["threads"] == walk["threads"]
+        assert plan["smem"] == 1024 + S * ((BT + 128) * 128 + 16) <= 232448
+        group = 16 * (BT // 8)
+        fold = (block_ell.TILE_THREADS[BT] // group - 1) * group * 64 * 4
+        assert fold <= S * (BT + 128) * 128
+        # blocks an SM (228 KB, 1 KB reserved a block): the parent's cp.async
+        # ring held 1 at BT = 128, 2 at 16 to 64, 3 at 8
+        blocks = {8: 3, 16: 2, 32: 2, 64: 2, 128: 1}[BT]
+        assert blocks * (plan["smem"] + 1024) <= 233472
+
+
+def test_periodic_stages_match_the_kernel():
+    """PERIODIC_STAGES, which launch_plan sizes the f32 ring's shared memory
+    from, is the table csrc/periodic_block_ell.cu's fma_stages compiles in."""
+    src = open(os.path.join(block_ell._CSRC, "periodic_block_ell.cu")).read()
+    body = src[src.index("constexpr int fma_stages()"):]
+    body = body[:body.index(";")]
+    pairs = dict((int(bt), int(n)) for bt, n in re.findall(r"BT == (\d+) \? (\d+)", body))
+    last = int(re.findall(r": (\d+)$", body.strip())[0])
+    table = {bt: pairs.get(bt, last) for bt in block_ell.TILE_THREADS}
+    assert table == block_ell.PERIODIC_STAGES
 
 
 def test_non_cpu_tensor_never_falls_back():
