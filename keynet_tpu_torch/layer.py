@@ -17,7 +17,8 @@ import scipy.sparse
 import torch
 
 from .globals import vprint, GLOBAL, precision
-from .toeplitz import toeplitz_conv2d, toeplitz_avgpool2d
+from .toeplitz import (toeplitz_conv2d, toeplitz_avgpool2d, toeplitz_global_avgpool2d,
+                       toeplitz_shortcut)
 from .homogeneous import affine_to_linear_matrix
 from .ops.operators import (materialize, DenseOp, EllOp, PermutedBlockSparseOp,
                             conv_layout_perm, DEFAULT_TILE)
@@ -249,6 +250,18 @@ class KeyedLayer:
                 return
             W_hom = toeplitz_avgpool2d(inshape, module.kernel_size, module.stride)
             W_hom = _key_sandwich(W_hom, A, Ainv)
+        elif isinstance(module, specs.GlobalAvgPool2d):
+            self._layertype = "avgpool2d"
+            self._repr = "GlobalAvgPool2d"
+            W_hom = _key_sandwich(toeplitz_global_avgpool2d(inshape), A, Ainv)
+        elif isinstance(module, specs.Shortcut):
+            # Ŝ = A_out·S·A_src⁻¹ with its homogeneous row zeroed: the residual
+            # sum then keeps the branch's trailing 1 alone
+            self._layertype = "shortcut"
+            self._repr = "Shortcut: stride=%d" % specs.shortcut_shape(inshape, outshape)
+            W_hom = _key_sandwich(toeplitz_shortcut(inshape, outshape), A, Ainv)
+            W_hom = scipy.sparse.vstack([W_hom[:-1], scipy.sparse.csr_matrix(
+                (1, W_hom.shape[1]), dtype=np.float32)], format="csr")
         elif isinstance(module, specs.Linear):
             self._layertype = "linear"
             self._repr = "Linear: in_features=%d, out_features=%d" % (
@@ -360,13 +373,16 @@ class KeyedLayer:
         spatial = (self._inshape is not None and self._outshape is not None
                    and len(self._inshape) == 3 and len(self._outshape) == 3
                    and self._inshape[1] * self._inshape[2] > 1)
-        # pooling / keyed-ReLU matrices are a few nnz per row (pool window x
-        # key fill): ELL (8 bytes/nnz) beats dense whenever the row fill K is
-        # small; BIG spatial pool/relu matrices fall through to the Block-ELL
+        # pooling / keyed-ReLU / shortcut matrices are a few nnz per row (pool
+        # window x key fill): ELL (8 bytes/nnz) beats dense whenever the row
+        # fill K is small; BIG spatial ones fall through to the Block-ELL
         # packing below like the convs, with ELL the fallback if the packing
-        # declines.  Same routing as the JAX package.
-        if self._layertype in ("avgpool2d", "relu"):
+        # declines.  Same routing as the JAX package.  A shortcut of one gain
+        # a row (ReLU-restricted keys at both ends) is always an ELL gather.
+        if self._layertype in ("avgpool2d", "relu", "shortcut"):
             K = int(np.diff(W_hom.indptr).max()) if W_hom.nnz else 1
+            if self._layertype == "shortcut" and K <= 1:
+                return EllOp.from_scipy(W_hom)
             if K <= GLOBAL.get("ELL_MAX_K", 128) \
                     and 8 * 8 * n_out * K <= n_out * n_in * 4:
                 big = 8 * n_out * K > int(GLOBAL.get("POOL_BLOCK_ELL_MIN_BYTES",

@@ -16,6 +16,12 @@ Semantics notes (all chosen so keyed == source EXACTLY):
     the reference's own keyed VGG16 implements this centered/padded variant.
   * batchnorm2d evaluates in inference mode (running stats).
   * dropout is identity at inference and is removed during keying.
+  * globalavgpool2d: the mean over each channel's H×W map, output (C, 1, 1).
+  * a ReLU with ``residual`` adds, before it clamps, the output of the named
+    earlier layer through the option-A shortcut (He et al., arXiv:1512.03385
+    §3.3): the identity where the shapes agree; where they differ, every
+    s-th pixel ``x[:, :, ::s, ::s]`` cut to the convs' output grid
+    (H//s, W//s), then zero channels after the first C (``shortcut_apply``).
 
 Naming conventions required by the keying pass (same as the reference):
 ReLU layer names contain 'relu'; a batchnorm keyed against layer 'xyz' must be
@@ -54,6 +60,11 @@ class AvgPool2d:
 
 
 @dataclass(frozen=True)
+class GlobalAvgPool2d:
+    name: str
+
+
+@dataclass(frozen=True)
 class MaxPool2d:
     name: str
     kernel_size: int
@@ -63,6 +74,14 @@ class MaxPool2d:
 
 @dataclass(frozen=True)
 class ReLU:
+    name: str
+    residual: Optional[str] = None  # layer whose output is added before the clamp
+
+
+@dataclass(frozen=True)
+class Shortcut:
+    """The option-A shortcut into the residual ReLU ``name``: not a layer of
+    a Model, the spec the keyed conversion lowers for that ReLU's add."""
     name: str
 
 
@@ -108,6 +127,26 @@ def avgpool2d_apply(x, kernel_size, stride):
     lo, hi = (kernel_size - 1) // 2, kernel_size // 2
     y = F.avg_pool2d(F.pad(x, (lo, hi, lo, hi)), kernel_size, stride)
     return y[:, :, : U // stride, : V // stride]
+
+
+def shortcut_shape(inshape, outshape):
+    """The stride s of the option-A shortcut from a (C, H, W) activation to
+    ``outshape``; raises where no such shortcut joins them."""
+    (C, H, W), (Co, Ho, Wo) = inshape, outshape
+    s = max(1, H // max(Ho, 1))
+    if Co < C or (H // s, W // s) != (Ho, Wo):
+        raise ValueError("no option-A shortcut from %s to %s" % (tuple(inshape),
+                                                                tuple(outshape)))
+    return s
+
+
+def shortcut_apply(x, outshape):
+    """The option-A shortcut of a (N, C, H, W) batch to ``outshape``: every
+    s-th pixel cut to (H//s, W//s), zero channels appended after the first C."""
+    C, H, W = outshape
+    s = shortcut_shape(tuple(x.shape[1:]), outshape)
+    x = x[:, :, ::s, ::s][:, :, :H, :W]
+    return F.pad(x, (0, 0, 0, 0, 0, C - x.shape[1]))
 
 
 def maxpool2d_apply(x, kernel_size, stride, pad):
@@ -191,15 +230,21 @@ class Model:
             if torch.is_tensor(a):
                 return a
             return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+        keep = self.residual_sources()
+        saved = {}
         for l in self.layers:
             if isinstance(l, Conv2d):
                 p = params[l.name]
                 x = conv2d_apply(x, t(p["weight"]), t(p["bias"]), l.stride, l.pad())
             elif isinstance(l, AvgPool2d):
                 x = avgpool2d_apply(x, l.kernel_size, l.stride)
+            elif isinstance(l, GlobalAvgPool2d):
+                x = x.mean((2, 3), keepdim=True)
             elif isinstance(l, MaxPool2d):
                 x = maxpool2d_apply(x, l.kernel_size, l.stride, l.padding)
             elif isinstance(l, ReLU):
+                if l.residual is not None:
+                    x = x + shortcut_apply(saved[l.residual], tuple(x.shape[1:]))
                 x = torch.clamp_min(x, 0.0)
             elif isinstance(l, Linear):
                 if x.ndim == 4:
@@ -218,6 +263,8 @@ class Model:
                 pass  # identity at inference
             else:
                 raise ValueError("unsupported layer %r" % (l,))
+            if l.name in keep:
+                saved[l.name] = x
         return x
 
     def __call__(self, x):
@@ -227,7 +274,8 @@ class Model:
     def netshape(self):
         """OrderedDict name -> {inshape, outshape, prevlayer, nextlayer} with
         'input'/'output' sentinels (analytic replacement for the reference's
-        hook-based netshape, keynet/torch.py:21-62).  Shapes are (C,H,W)."""
+        hook-based netshape, keynet/torch.py:21-62).  Shapes are (C,H,W).
+        A residual ReLU's entry also holds ``residual``, the layer it adds."""
         d = OrderedDict()
         shape = self.inshape
         prev = "input"
@@ -242,6 +290,8 @@ class Model:
             elif isinstance(l, (AvgPool2d, MaxPool2d)):
                 C, U, V = shape
                 shape = (C, U // l.stride, V // l.stride)
+            elif isinstance(l, GlobalAvgPool2d):
+                shape = (shape[0], 1, 1)
             elif isinstance(l, Linear):
                 assert int(np.prod(shape)) == l.in_features, \
                     "flatten mismatch at %s: %s vs %d" % (l.name, shape, l.in_features)
@@ -250,12 +300,23 @@ class Model:
             # ReLU/BatchNorm/Dropout keep shape
             d[l.name] = {"inshape": ins, "outshape": shape,
                          "prevlayer": prev, "nextlayer": None}
+            if getattr(l, "residual", None) is not None:
+                src = l.residual
+                assert src in d and src != "input", \
+                    "%s adds %r, which is not an earlier layer" % (l.name, src)
+                shortcut_shape(d[src]["outshape"], shape)
+                d[l.name]["residual"] = src
             d[prev]["nextlayer"] = l.name
             prev = l.name
         d["output"] = {"prevlayer": prev, "nextlayer": None,
                        "inshape": shape, "outshape": shape}
         d["input"]["nextlayer"] = d["input"]["nextlayer"] or "output"
         return d
+
+    def residual_sources(self):
+        """The layers whose output a residual ReLU adds later."""
+        return {l.residual for l in self.layers
+                if isinstance(l, ReLU) and l.residual is not None}
 
     def layer(self, name):
         for l in self.layers:

@@ -3,12 +3,14 @@
 Architectures mirror the reference exactly so its shipped checkpoints load
 bit-for-bit: LeNet / LeNet_AvgPool (keynet/mnist.py:11-63), AllConvNet with
 optional batchnorm (keynet/cifar10.py:12-65), and the avgpool VGG-16 variant
-(keynet/vgg.py:38-122).  Dataset normalization constants are carried along for
-the training/validation recipes.
+(keynet/vgg.py:38-122).  ResNet34A is ResNet-34 with option-A shortcuts
+(arXiv:1512.03385) in the same average-pool Key-Net form.  Dataset
+normalization constants are carried along for the training/validation
+recipes.
 """
 
-from .specs import (Model, Conv2d, AvgPool2d, MaxPool2d, ReLU, Linear,
-                    BatchNorm2d, Dropout)
+from .specs import (Model, Conv2d, AvgPool2d, GlobalAvgPool2d, MaxPool2d, ReLU,
+                    Linear, BatchNorm2d, Dropout)
 
 MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
 CIFAR10_MEAN = (0.49139968, 0.48215841, 0.44653091)
@@ -100,6 +102,39 @@ def VGG16(num_classes=2622, seed=0):
                Dropout("dropout7", 0.5), Linear("fc7", 4096, 4096), ReLU("relu7"),
                Dropout("dropout8", 0.5), Linear("fc8", 4096, num_classes)]
     return Model(layers, inshape=(3, 224, 224), seed=seed)
+
+
+def ResNetA(blocks, widths, stem=64, num_classes=1000, inshape=(3, 224, 224), seed=0):
+    """A ResNet of basic blocks with option-A shortcuts (He et al.,
+    arXiv:1512.03385, §3.3): a 7x7/2 conv stem, ReLU and a 3x3/2 average pool
+    (max pooling cannot be keyed), then one stage a pair of ``blocks`` and
+    ``widths``: that many blocks at that many channels, each
+    y = relu(conv2(relu(conv1(x))) + S(x)), conv1 at stride 2 where a stage
+    after the first begins; a global average pool and the classifier.  BatchNorm is taken as folded into the convs.
+    Layer names follow torchvision: conv1, relu1, pool1,
+    layer<S>.<B>.conv1 / relu1 / conv2 / relu2, avgpool, fc."""
+    layers = [Conv2d("conv1", inshape[0], stem, 7, stride=2), ReLU("relu1"),
+              AvgPool2d("pool1", 3, 2)]
+    src, cin = "pool1", stem
+    for S, (n, width) in enumerate(zip(blocks, widths), start=1):
+        for b in range(n):
+            name = "layer%d.%d." % (S, b)
+            stride = 2 if S > 1 and b == 0 else 1
+            layers += [Conv2d(name + "conv1", cin, width, 3, stride=stride),
+                       ReLU(name + "relu1"),
+                       Conv2d(name + "conv2", width, width, 3),
+                       ReLU(name + "relu2", residual=src)]
+            src, cin = name + "relu2", width
+    layers += [GlobalAvgPool2d("avgpool"), Linear("fc", cin, num_classes)]
+    return Model(layers, inshape=inshape, seed=seed)
+
+
+def ResNet34A(num_classes=1000, seed=0):
+    """ResNet-34 with option-A shortcuts at 3x224x224 (arXiv:1512.03385,
+    Table 1's 34-layer column): stages of 3/4/6/3 blocks at widths
+    64/128/256/512 on maps of 56²/28²/14²/7²."""
+    return ResNetA((3, 4, 6, 3), (64, 128, 256, 512), num_classes=num_classes,
+                   seed=seed)
 
 
 # ------------------------------------------------- VGG-16 image preprocessing

@@ -710,6 +710,10 @@ class EllOp(LinearOp):
             parts.append(torch.einsum("bnk,nk->bn", xg, self.vals[r0:r0 + rc]))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
+    def read_cols(self):
+        """The distinct input coordinates a non-zero entry reads."""
+        return int(torch.unique(self.cols[self.vals != 0]).numel())
+
     def nnz(self):
         return self._nnz
 

@@ -135,8 +135,9 @@ def replicate_ops(ops, mesh):
 
 def keyed_forward_sharded(knet, mesh, axis="dp"):
     """Return f(x): knet's keyed forward (KeyedModel.run) on a full cipher
-    batch with its rows split over ``axis`` and the keys replicated; every
-    rank gets the whole batch's output."""
+    batch with its rows split over ``axis`` and the keys replicated (a
+    residual net's shortcut ops too: its plan is per row); every rank gets
+    the whole batch's output."""
     knet._build()
     ops = replicate_ops(knet._ops, mesh)
 
@@ -544,7 +545,10 @@ def shard_keynet_ops(knet, mesh, tp_axis="tp", min_tp_bytes=32 * 1024 * 1024):
     a channel-broadcast pool of at least ``min_tp_bytes`` shards its
     spatial factor; chains of at least ``min_tp_bytes // 8`` shard their
     shardable links (tp_shard_chain_op).  Everything else replicates, moved
-    to the mesh's device.  Returns the ops for knet.run(x, ops)."""
+    to the mesh's device.  A residual net's shortcut ops follow its stages'
+    ops in ``knet._ops`` and take the same decisions (an add needs their
+    whole output, which every tp form gives).  Returns the ops for
+    knet.run(x, ops)."""
     knet._build()
     tp = mesh.size(tp_axis)
     out = []

@@ -39,7 +39,18 @@ bucket: G tile_ids patterns of KB slots, each applied to m row-blocks, nz
 of the G·KB slots non-zero.  ``run_step`` opens the span
 ``keynet.grouped`` around each grouped step, inside the link span that holds
 the core: the benchmark reads its device time beside the work it computes
-from these shapes."""
+from these shapes.
+
+In a residual net each residual ReLU's stage ``keynet.layer/<relu>/relu``
+holds the span ``keynet.residual`` around its shortcut's apply, its add
+and the ReLU (``KeyedModel._add_residual``).
+``RESIDUAL`` (always on) counts those applies (``applies``) and keeps in
+``shortcuts``, under the ReLU's name, its last apply: ``last`` (the value
+of ``applies`` it left), ``B``, ``x_itemsize``, ``rows_out`` and
+``rows_in`` (the keyed shortcut's shape, homogeneous coordinate included),
+``nnz``, ``x_cols`` (the distinct input coordinates its non-zero entries
+read) and ``op_bytes`` (its values and indices on the device).  The
+benchmark computes the least bytes of a request's shortcuts from these."""
 
 import contextlib
 import os
@@ -52,6 +63,8 @@ LOAD_SECONDS = {}
 # BlockSparseOp.run_step's grouped steps, their bucket chunks, and each core's
 # shapes at its last apply (see above)
 GROUPED_ROWS = {"applies": 0, "chunks": 0, "cores": {}}
+# the residual adds KeyedModel.run makes and each shortcut's last apply (see above)
+RESIDUAL = {"applies": 0, "shortcuts": {}}
 _NO_SPAN = contextlib.nullcontext()
 
 
@@ -120,6 +133,24 @@ def timed_ms(device, fn, *args):
     return out, 1e3 * (time.perf_counter() - t)
 
 
+def residual_record(relu, op):
+    """The counter's record of the shortcut ``op`` into the residual ReLU
+    ``relu``, its shapes read once (KeyedModel._build)."""
+    n_out, n_in = op.shape
+    x_cols = op.read_cols() if hasattr(op, "read_cols") else n_in
+    return {"name": relu, "last": 0, "B": 0, "x_itemsize": 4, "rows_out": int(n_out),
+            "rows_in": int(n_in), "nnz": int(op.nnz()), "x_cols": int(x_cols),
+            "op_bytes": int(op.device_bytes())}
+
+
+def count_residual(record, x):
+    """Count one residual add of the shortcut ``record`` on the batch ``x``."""
+    RESIDUAL["applies"] += 1
+    record.update(last=RESIDUAL["applies"], B=int(x.shape[0]),
+                  x_itemsize=x.element_size())
+    RESIDUAL["shortcuts"][record["name"]] = record
+
+
 def active():
     """Whether a torch.profiler or autograd profiler is recording."""
     return torch.autograd.profiler._is_profiler_enabled
@@ -173,7 +204,8 @@ def _on_cpu(event):
 
 def layer_report(knet):
     """Per-layer accounting table: format, shape, nnz, device bytes
-    (reference: per-layer nnz repr, keynet/layer.py:84-86)."""
+    (reference: per-layer nnz repr, keynet/layer.py:84-86); a residual
+    ReLU's shortcut follows it as the row ``<relu>+<source>``."""
     rows = []
     for name, l in knet.layers().items():
         if l == "relu":
@@ -183,6 +215,11 @@ def layer_report(knet):
             rows.append({"layer": name, "format": type(l.op()).__name__,
                          "shape": tuple(l.shape), "nnz": l.nnz(),
                          "device_bytes": l.device_bytes()})
+        if name in knet.residuals():
+            src, sc = knet.residuals()[name]
+            rows.append({"layer": "%s+%s" % (name, src), "format": type(sc.op()).__name__,
+                         "shape": tuple(sc.shape), "nnz": sc.nnz(),
+                         "device_bytes": sc.device_bytes()})
     return rows
 
 

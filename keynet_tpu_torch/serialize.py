@@ -2,8 +2,12 @@
 
 A bundle is one .npz: every device operator's arrays plus a JSON manifest
 (format, shapes, layer order, relu plan) and, with include_keys, the private
-keys as CSR arrays.  Private keys are stored only when ``include_keys=True``
-— a public release stores none, like KeyedModel.public().  ``save_keynet``
+keys as CSR arrays.  A residual ReLU is the manifest entry of kind
+``residual_relu``, whose meta holds its ``source`` layer and its keyed
+shortcut's entry (``shortcut``; the op's arrays under the ReLU's name): a
+kind keynet_tpu has no op for, so that package refuses such a bundle.
+Private keys are stored only when ``include_keys=True`` — a public release
+stores none, like KeyedModel.public().  ``save_keynet``
 writes the array names, dtypes and manifest of keynet_tpu/serialize.py:24-86,
 :147-190 (bf16 tiles as their uint16 bit pattern, ``period`` in the meta,
 the expanded period tiles not saved), and ``load_keynet`` reads the same
@@ -115,19 +119,26 @@ def save_keynet(path, knet, sensor=None, include_keys=False):
     (keynet_tpu/serialize.py:160-190); returns ``path``."""
     arrays, manifest = {}, {"layers": [], "outshape": list(knet._outshape),
                             "include_keys": bool(include_keys)}
-    for name, l in knet.layers().items():
-        assert "__" not in name, \
-            "layer name %r: '__' is the array-key separator" % name
-        if l == "relu":
-            manifest["layers"].append({"name": name, "kind": "relu"})
-            continue
+    residuals = knet.residuals()
+
+    def entry(name, l):
         kind, arrs, meta = _op_state(l.op())
         for k, v in arrs.items():
             arrays["layer_%s__%s" % (name, k)] = v
-        manifest["layers"].append({
-            "name": name, "kind": kind, "meta": _jsonable(meta),
-            "relu": bool(l._relu), "repr": l._repr, "layertype": l._layertype,
-            "shape": list(l.shape), "nnz": l.nnz()})
+        return {"name": name, "kind": kind, "meta": _jsonable(meta),
+                "relu": bool(l._relu), "repr": l._repr, "layertype": l._layertype,
+                "shape": list(l.shape), "nnz": l.nnz()}
+    for name, l in knet.layers().items():
+        assert "__" not in name, \
+            "layer name %r: '__' is the array-key separator" % name
+        if l == "relu" and name in residuals:
+            src, sc = residuals[name]
+            manifest["layers"].append({"name": name, "kind": "residual_relu", "meta": {
+                "source": src, "shortcut": entry(name, sc)}})
+        elif l == "relu":
+            manifest["layers"].append({"name": name, "kind": "relu"})
+        else:
+            manifest["layers"].append(entry(name, l))
     if include_keys:
         if knet._imagekey is not None:
             arrays.update(_csr_arrays("imagekey", knet._imagekey))
@@ -214,6 +225,20 @@ def _phase(phase):
     profiling.LOAD_SECONDS[phase] += time.perf_counter() - t
 
 
+def _restore_layer(entry, arrs):
+    """A KeyedLayer from its manifest entry and arrays."""
+    kl = KeyedLayer.__new__(KeyedLayer)
+    kl._op = _op_restore(entry["kind"], arrs, entry["meta"])
+    kl._relu = entry["relu"]
+    kl._repr = entry["repr"]
+    kl._layertype = entry["layertype"]
+    kl._inshape = kl._outshape = kl._tileshape = None
+    kl.shape = tuple(entry["shape"])
+    kl._nnz = entry["nnz"]
+    kl.W = None
+    return kl
+
+
 def load_keynet(path, device="cuda"):
     """Restore (sensor_or_None, KeyedModel) from a save_keynet bundle, with
     the ops on ``device``.  Fills profiling.LOAD_SECONDS with the host
@@ -229,7 +254,7 @@ def load_keynet(path, device="cuda"):
     with z:
         with _phase("read"):
             manifest = json.loads(bytes(z["__manifest__"]).decode())
-        layers = OrderedDict()
+        layers, residuals = OrderedDict(), OrderedDict()
         for entry in manifest["layers"]:
             name = entry["name"]
             if entry["kind"] == "relu":
@@ -239,17 +264,12 @@ def load_keynet(path, device="cuda"):
             with _phase("read"):
                 arrs = {k[len(key):]: z[k] for k in z.files if k.startswith(key)}
             with _phase("restore"):
-                op = _op_restore(entry["kind"], arrs, entry["meta"])
-            kl = KeyedLayer.__new__(KeyedLayer)
-            kl._op = op
-            kl._relu = entry["relu"]
-            kl._repr = entry["repr"]
-            kl._layertype = entry["layertype"]
-            kl._inshape = kl._outshape = kl._tileshape = None
-            kl.shape = tuple(entry["shape"])
-            kl._nnz = entry["nnz"]
-            kl.W = None
-            layers[name] = kl
+                if entry["kind"] == "residual_relu":
+                    layers[name] = "relu"
+                    residuals[name] = (entry["meta"]["source"],
+                                       _restore_layer(entry["meta"]["shortcut"], arrs))
+                else:
+                    layers[name] = _restore_layer(entry, arrs)
 
         with _phase("read"):
             keys = {k: _csr_members(k, z) for k in
@@ -259,7 +279,8 @@ def load_keynet(path, device="cuda"):
         csr = {k: _csr(*v) for k, v in keys.items()}
         knet = KeyedModel.from_layers(layers, manifest["outshape"],
                                       imagekey=csr.get("imagekey"),
-                                      embeddingkey=csr.get("embeddingkey"), device=device)
+                                      embeddingkey=csr.get("embeddingkey"), device=device,
+                                      residuals=residuals)
         sensor = None
         if "sensor_encrypt" in csr:
             sensor = KeyedSensor(tuple(manifest["sensor_inshape"]),

@@ -16,6 +16,7 @@ import scipy.sparse
 import torch
 
 from . import fiberbundle
+from . import profiling
 from .profiling import active as profiler_active, annotate
 from .globals import vprint, precision, resolve_device
 from .util import find_closest_positive_divisor  # noqa: F401  (public re-export)
@@ -78,7 +79,11 @@ class KeyedModel:
       * ReLU outkeys (restricted to families that commute with ReLU) are
         applied to the preceding layer, leaving a plain elementwise ReLU; a
         ReLU following a fused batchnorm is keyed explicitly;
-      * every other layer becomes a KeyedLayer with Ŵ = A_out · W · A_in⁻¹.
+      * every other layer becomes a KeyedLayer with Ŵ = A_out · W · A_in⁻¹;
+      * a ReLU with a ``residual`` source also keys its option-A shortcut
+        Ŝ = A_out · S · A_src⁻¹ (A_src the source's own output key, A_out
+        the ReLU's), whose output the forward adds to the cipher branch
+        before the ReLU: nothing is decrypted.
     """
 
     def __init__(self, net, inshape, inkey, f_layername_to_keypair,
@@ -118,6 +123,8 @@ class KeyedModel:
                 if which == "A":
                     return _outkeypair(self.k)[0] \
                         if (self.k != last or do_output_encryption) else None
+                if which == "Aout_inv":   # the inverse of this layer's own out key
+                    return _outkeypair(self.k)[1]
                 prev = shapes[self.k]["prevlayer"]
                 return inkey if prev == "input" else _outkeypair(prev)[1]
 
@@ -126,6 +133,7 @@ class KeyedModel:
         self._embeddingkey = _outkeypair(last)[1] if do_output_encryption else None
 
         keyed = OrderedDict()
+        self._residuals = OrderedDict()      # relu -> (source layer, keyed shortcut)
         self.layer_seconds = OrderedDict()   # host seconds of each keyed layer
         self._key_layers(net, shapes, layerkey, keyed, f_module_to_keyedmodule)
         self._layers = keyed
@@ -171,7 +179,13 @@ class KeyedModel:
                         params=net.params.get(k_prev))
                     keyed[k] = "relu"  # plain elementwise relu marker
                     vprint("[keynet_tpu_torch.KeyedModel]:     %r + ReLU" % keyed[k_prev])
+                    if l.residual is not None:
+                        self._key_shortcut(net, shapes, layerkey, keyed, l,
+                                           f_module_to_keyedmodule)
                 else:
+                    if l.residual is not None:
+                        raise ValueError("residual ReLU %r must follow the layer it "
+                                         "folds into, not a fused batchnorm" % k)
                     # previous layer already keyed by bn fusion: explicit keyed relu
                     keyed[k] = KeyedLayer(l, shapes[k]["inshape"], shapes[k]["outshape"],
                                           layerkey[k]["A"], layerkey[k]["Ainv"])
@@ -195,14 +209,31 @@ class KeyedModel:
             if k in keyed or (k.endswith("_bn")):
                 vprint("[keynet_tpu_torch.KeyedModel]:     %.1fs" % elapsed)
 
+    def _key_shortcut(self, net, shapes, layerkey, keyed, l, f_module_to_keyedmodule):
+        """Key the option-A shortcut of the residual ReLU ``l`` from its
+        source's output key to the ReLU's."""
+        k, src = l.name, l.residual
+        nxt = shapes[src]["nextlayer"]
+        if keyed.get(src) is None or (nxt not in (None, "output") and (
+                nxt == src + "_bn" or isinstance(net.layer(nxt), specs.ReLU))):
+            raise ValueError("%s adds %r, whose output is not a keyed stage of its "
+                             "own: name a ReLU or a layer no ReLU follows" % (k, src))
+        self._residuals[k] = (src, f_module_to_keyedmodule(
+            specs.Shortcut(k), shapes[src]["outshape"], shapes[k]["outshape"],
+            layerkey[k]["A"], layerkey[src]["Aout_inv"]))
+        vprint("[keynet_tpu_torch.KeyedModel]:     shortcut from %s: %r"
+               % (src, self._residuals[k][1]))
+
     @classmethod
     def from_layers(cls, layers, outshape, imagekey=None, embeddingkey=None,
-                    device="cuda"):
+                    device="cuda", residuals=None):
         """Assemble a KeyedModel directly from an OrderedDict of KeyedLayer /
-        'relu' entries (deserialization path)."""
+        'relu' entries (deserialization path); ``residuals`` maps a residual
+        ReLU to (its source layer, its keyed shortcut)."""
         self = cls.__new__(cls)
         self._device = resolve_device(device)
         self._layers = OrderedDict(layers)
+        self._residuals = OrderedDict(residuals or ())
         self.layer_seconds = OrderedDict()
         self._outshape = tuple(outshape)
         self._imagekey = imagekey
@@ -218,7 +249,11 @@ class KeyedModel:
 
     def _build(self):
         """Static plan ((layer, None) for a ReLU, (layer, fused_relu) for an
-        op) and the ops, moved to the device once."""
+        op) and the ops, moved to the device once.  A residual net's plan
+        also says which stage outputs to keep (``_keep``: stage -> the
+        stage of its last add) and what each residual ReLU adds (``_adds``:
+        stage -> (source stage, index of its shortcut's op, its counter
+        record)); the shortcut ops follow the stages' ops in ``_ops``."""
         if self._ops is not None:
             return
         stages, ops = [], []
@@ -229,6 +264,17 @@ class KeyedModel:
                 stages.append((name, bool(l._relu)))
                 ops.append(l.op().to(self._device))
         self._stages = stages
+        self._keep, self._adds = {}, {}
+        at = {name: j for j, (name, _) in enumerate(stages)}
+        for relu, (src, sc) in self._residuals.items():
+            j, js = at.get(relu), at.get(src)
+            if j is None or js is None or js >= j or stages[j][1] is not None:
+                raise ValueError("residual %s <- %s: not a ReLU stage after its source"
+                                 % (relu, src))
+            op = sc.op()
+            self._adds[j] = (js, len(ops), profiling.residual_record(relu, op))
+            self._keep[js] = max(j, self._keep.get(js, j))
+            ops.append(op.to(self._device))
         self._ops = ops
 
     def _span_names(self, ops):
@@ -243,26 +289,49 @@ class KeyedModel:
         device: every layer's op with ReLU between layers
         (keynet_tpu/system.py:256-270).  ``ops`` replaces the net's own ops
         one for one, as keynet_tpu's ``_forward(ops, x)`` takes them (the
-        sharded plans of parallel.sharding).  ``spans``: whether a profiler
+        sharded plans of parallel.sharding; a residual net's shortcut ops
+        follow its stages' ops).  ``spans``: whether a profiler
         records (read here when None); each stage then runs in its span.
         Returns the cipher output."""
         precision()
         self._build()
         ops = self._ops if ops is None else ops
+        if len(ops) != len(self._ops):
+            raise ValueError("run: %d ops given for a plan of %d (its stages' ops, then "
+                             "its %d shortcuts')" % (len(ops), len(self._ops),
+                                                     len(self._adds)))
         if spans is None:
             spans = profiler_active()
         names = self._span_names(ops) if spans else itertools.repeat(None)
+        keep, adds, saved = self._keep, self._adds, {}
         with annotate("keynet.run", spans):
             i = 0
-            for (_, relu), name in zip(self._stages, names):
+            for j, ((_, relu), name) in enumerate(zip(self._stages, names)):
                 with annotate(name, spans):
                     if relu is None:
-                        x = torch.clamp_min(x, 0.0)
-                        continue
-                    x = ops[i].apply(x)
-                    if relu:
-                        x = torch.clamp_min(x, 0.0)
-                    i += 1
+                        if j in adds:
+                            x = self._add_residual(x, j, ops, saved, spans)
+                        else:
+                            x = torch.clamp_min(x, 0.0)
+                    else:
+                        x = ops[i].apply(x)
+                        if relu:
+                            x = torch.clamp_min(x, 0.0)
+                        i += 1
+                if j in keep:
+                    saved[j] = x
+        return x
+
+    def _add_residual(self, x, j, ops, saved, spans):
+        """Stage ``j``'s residual ReLU: the keyed shortcut of its source's
+        kept output added into the cipher branch ``x``, then the ReLU, in
+        the span ``keynet.residual``; the source's output is freed at its
+        last add."""
+        js, k, record = self._adds[j]
+        src = saved[js] if self._keep[js] > j else saved.pop(js)
+        with annotate("keynet.residual", spans):
+            x = x.add_(ops[k].apply(src)).clamp_min_(0.0)
+        profiling.count_residual(record, src)
         return x
 
     def _h2d(self, img_cipher, spans):
@@ -318,20 +387,30 @@ class KeyedModel:
         return self
 
     # -------------------------------------------------------------- accounting
+    def _keyed_layers(self):
+        return [l for l in self._layers.values() if isinstance(l, KeyedLayer)] + \
+            [sc for _, sc in self._residuals.values()]
+
     def num_parameters(self):
-        return int(sum(l.nnz() for l in self._layers.values() if isinstance(l, KeyedLayer)))
+        return int(sum(l.nnz() for l in self._keyed_layers()))
 
     def device_bytes(self):
-        return int(sum(l.device_bytes() for l in self._layers.values()
-                       if isinstance(l, KeyedLayer)))
+        return int(sum(l.device_bytes() for l in self._keyed_layers()))
 
     def layers(self):
         return self._layers
+
+    def residuals(self):
+        """{residual ReLU: (source layer, keyed shortcut KeyedLayer)}."""
+        return self._residuals
 
     def __repr__(self):
         lines = ["<keynet_tpu_torch.KeyedModel:"]
         for name, l in self._layers.items():
             lines.append("  (%s): %s" % (name, "ReLU()" if l == "relu" else repr(l)))
+            if name in self._residuals:
+                src, sc = self._residuals[name]
+                lines.append("    (+ %s): %r" % (src, sc))
         return "\n".join(lines) + "\n>"
 
 

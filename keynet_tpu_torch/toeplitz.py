@@ -338,3 +338,36 @@ def toeplitz_avgpool2d(inshape, kernelsize, stride, format="csr"):
     vals = np.concatenate([vals, [np.float32(1.0)]])
     A = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(n_out + 1, n_in + 1))
     return A.asformat(format) if format != "coo" else A
+
+
+def toeplitz_global_avgpool2d(inshape, format="csr"):
+    """Homogeneous sparse matrix of the global average pool: the (C, C·H·W)
+    mean of each channel's map, entries 1/(H·W), with the [0..0 1] row."""
+    C, U, V = inshape
+    npix = U * V
+    rows = np.concatenate([np.repeat(np.arange(C, dtype=np.int64), npix), [C]])
+    cols = np.concatenate([np.arange(C * npix, dtype=np.int64), [C * npix]])
+    vals = np.concatenate([np.full(C * npix, 1.0 / npix, dtype=np.float32),
+                           [np.float32(1.0)]])
+    A = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(C + 1, C * npix + 1))
+    return A.asformat(format) if format != "coo" else A
+
+
+def toeplitz_shortcut(inshape, outshape, format="csr"):
+    """Homogeneous selection matrix of the option-A shortcut
+    (models/specs.shortcut_apply): output pixel (c, i, j) of the first C
+    channels reads input (c, s·i, s·j), the appended channels read nothing.
+    The homogeneous row and column are zero, so a residual sum keeps the
+    branch's trailing 1 alone."""
+    from .models.specs import shortcut_shape
+    C, U, V = inshape
+    Co, Uo, Vo = outshape
+    s = shortcut_shape(inshape, outshape)
+    ch, i, j = np.meshgrid(np.arange(C, dtype=np.int64), np.arange(Uo, dtype=np.int64),
+                           np.arange(Vo, dtype=np.int64), indexing="ij")
+    rows = ((ch * Uo + i) * Vo + j).reshape(-1)
+    cols = ((ch * U + s * i) * V + s * j).reshape(-1)
+    vals = np.ones(rows.size, dtype=np.float32)
+    A = scipy.sparse.coo_matrix((vals, (rows, cols)),
+                                shape=(Co * Uo * Vo + 1, C * U * V + 1))
+    return A.asformat(format) if format != "coo" else A

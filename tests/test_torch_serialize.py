@@ -236,3 +236,25 @@ def test_tapsum_chain_roundtrip(tmp_path, T, C2, C1):
         assert torch.equal(got, torch.from_numpy(want))
     x = torch.from_numpy(rng.standard_normal((3, op.shape[1])).astype(np.float32))
     assert torch.equal(op2.apply(x), op.apply(x))
+
+
+def test_residual_bundle_is_refused_by_jax(tmp_path):
+    """A residual net's bundle (the ``residual_relu`` entries of its
+    shortcuts) serves in the port; keynet_tpu, which has no residual nets,
+    refuses it rather than serve the net without its shortcuts."""
+    net = kt.models.ResNetA((1, 1), (4, 8), stem=4, num_classes=5, inshape=(3, 16, 16))
+    sensor, knet = kt.PermutationKeynet((3, 16, 16), net, seed=3, device="cpu")
+    path = str(tmp_path / "resnet.npz")
+    kt.save_keynet(path, knet, sensor=sensor, include_keys=True)
+    with np.load(path) as z:
+        manifest = json.loads(bytes(z["__manifest__"]).decode())
+    kinds = {e["name"]: e["kind"] for e in manifest["layers"]}
+    assert [n for n, k in kinds.items() if k == "residual_relu"] == \
+        ["layer1.0.relu2", "layer2.0.relu2"]
+    _, knet2 = kt.load_keynet(path, device="cpu")
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=(2, 3, 16, 16)),
+                        dtype=torch.float32)
+    xc = sensor.fromtensor(x).encrypt().tensor()
+    assert torch.equal(knet2.forward(xc), knet.forward(xc))
+    with pytest.raises(ValueError, match="residual_relu"):
+        kj.serialize.load_keynet(path)
