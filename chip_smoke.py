@@ -1992,17 +1992,20 @@ def index_bytes_beyond_count(op):
 def device_memory(tag, label, sensor, knet, before):
     """Print torch.cuda.memory_allocated() taken by a keyed net (sensor and
     net; ``before`` is the count before either was built) beside
-    device_bytes() and the int64 index bytes that count leaves out."""
+    device_bytes() of the published ops, that of the run plan's ops (the
+    card holds the plan: a folded chain's links stay on the host) and the
+    int64 index bytes that count leaves out."""
     import torch
     knet._build()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - before
     counted = knet.device_bytes() + sensor.device_bytes()
+    plan = sum(op.device_bytes() for op in knet._ops) + sensor.device_bytes()
     extra = index_bytes_beyond_count(sensor.op()) + sum(
-        index_bytes_beyond_count(l.op()) for l in knet.layers().values() if l != "relu")
-    res = dict(memory_allocated=held, device_bytes=counted, gap=held - counted,
-               int64_index_bytes_beyond_count=extra,
-               gap_unexplained=held - counted - extra)
+        index_bytes_beyond_count(op) for op in knet._ops)
+    res = dict(memory_allocated=held, device_bytes=counted, plan_device_bytes=plan,
+               gap=held - plan, int64_index_bytes_beyond_count=extra,
+               gap_unexplained=held - plan - extra)
     log("[%s] %s device memory: %s" % (tag, label, json.dumps(res)))
     return res
 
@@ -2352,9 +2355,8 @@ def parallel_rank(rank, world, device="cuda"):
     net = kt.models.AllConvNet(seed=1)
     sensor, knet = kt.StochasticKeynet((3, 32, 32), net, alpha=2, blocksize=8, seed=0,
                                        device=dev)
-    knet._build()
     h = hashlib.sha1()
-    for op in [sensor.op()] + list(knet._ops):
+    for op in [sensor.op()] + knet.published_ops():
         for k, v in sorted(op.arrays().items()):
             h.update(k.encode())
             h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
@@ -2376,7 +2378,7 @@ def parallel_rank(rank, world, device="cuda"):
         if "TpShardedTapSumOp" not in routes[name]:
             raise AssertionError("[parallel] %s's chain did not shard: %s" % (name, routes[name]))
     held_bytes = S.plan_local_bytes(plan)
-    full_bytes = sum(op.device_bytes() for op in knet._ops)
+    full_bytes = sum(op.device_bytes() for op in knet.published_ops())
     audit = S.replication_report(plan)
     say("replication_report: %s" % json.dumps(audit))
     if [r for r in audit if r[3] is None]:

@@ -1,4 +1,5 @@
-"""Kronecker-factored keyed convolutions, and channel-broadcast keyed pools
+"""Kronecker-factored keyed convolutions, their fold into one TapSum link
+for the run plan (plan_op), and channel-broadcast keyed pools
 (channel_broadcast_keyed_pool, at the end).
 
 A conv's Toeplitz matrix is exactly a sum of Kronecker products over its taps
@@ -45,6 +46,7 @@ import scipy.sparse
 import torch
 
 from ..globals import GLOBAL, vprint
+from ..profiling import count_kron_folds
 from ..toeplitz import toeplitz_conv2d
 from .operators import KroneckerOp, TapSumOp, ChainedOp
 
@@ -282,6 +284,89 @@ def kron_factored_keyed_conv(inshape, outshape, weight, bias, stride,
 
     op.kron_stats = {"taps": T, "p_in": p1, "p_out": p2}
     return op
+
+
+def kron_runs(ops):
+    """Where a chain's links ``ops`` hold runs that fold (fold_kron_run): the
+    index of each run's first link, runs taken left to right without
+    overlap.  A run is a KroneckerOp, a TapSumOp and a KroneckerOp in apply
+    order, neither KroneckerOp with a gather (``perm_in``, ``perm_out``),
+    whose channel and pixel counts meet the TapSumOp's.  Reads only the
+    links' types and shapes."""
+    starts, i = [], 0
+    while i + 3 <= len(ops):
+        f2, m, f1 = ops[i:i + 3]
+        if (isinstance(f2, KroneckerOp) and isinstance(m, TapSumOp)
+                and isinstance(f1, KroneckerOp)
+                and all(k.perm_in is None and k.perm_out is None for k in (f2, f1))):
+            T, p2, p1 = m.S.shape
+            C2, C1 = m.K_st.shape[0], m.K_st.shape[1] // T
+            if (f2.Cm.shape[0], f2.Sm.shape[0]) == (C1, p1) \
+                    and (f1.Cm.shape[1], f1.Sm.shape[1]) == (C2, p2):
+                starts.append(i)
+                i += 3
+                continue
+        i += 1
+    return starts
+
+
+def fold_kron_run(f2, m, f1, device):
+    """One TapSumOp on ``device`` equal to the run F1·M·F2 (links f2, m, f1
+    in apply order; kron_runs says which runs qualify).  By the
+    mixed-product rule
+
+        (C_F1 ⊗ S_F1)·(Σ_t K_t ⊗ S_t)·(C_F2 ⊗ S_F2) = Σ_t K'_t ⊗ S'_t,
+        K'_t = C_F1·K_t·C_F2,   S'_t = S_F1·S_t·S_F2,
+
+    and the bias is the run applied to the homogeneous unit vector.  Built
+    in float64 one tap at a time (the transient is a few (p2, p1) float64
+    matrices) and stored in float32 as the links are; the links themselves
+    are only read and stay where they are."""
+    f64 = torch.float64
+    Ca, Sa = f1.Cm.to(device, f64), f1.Sm.to(device, f64)
+    Cb, Sb = f2.Cm.to(device, f64), f2.Sm.to(device, f64)
+    K = m.K.to(device, f64)                                  # (T, C2, C1)
+    T, C2, C1 = K.shape
+    p2, p1 = m.S.shape[1:]
+    b_in = f2.bias.to(device, f64).view(C1, p1)
+    z = m.bias.to(device, f64).view(C2, p2).clone()          # M's output on f2's bias
+    S = torch.empty((T, Sa.shape[0], Sb.shape[1]), dtype=torch.float32, device=device)
+    for t in range(T):
+        St = m.S[t].to(device, f64)
+        z += K[t] @ (b_in @ St.T)
+        S[t] = Sa @ St @ Sb
+    bias = (Ca @ z @ Sa.T).reshape(-1) + f1.bias.to(device, f64)
+    return TapSumOp((Ca @ K @ Cb).to(torch.float32), S, bias.to(torch.float32))
+
+
+def plan_op(op, device, name):
+    """The op a single-device run plan applies in place of the published
+    op ``op`` (KeyedModel._build): a chain's Kronecker–TapSum–Kronecker runs
+    (kron_runs) each folded into one TapSumOp on ``device``, the chain's
+    other links moved there in place; a chain that folds to one link is
+    that TapSumOp.  The folded runs' links are left where they are, so the
+    device never holds a run beside its fold.  Any other op is moved in
+    place.  Counts the runs and the Kronecker links kept in
+    profiling.KRON_FOLDS under the layer ``name``."""
+    links = op.ops if isinstance(op, ChainedOp) else (op,)
+    starts = kron_runs(links)
+    runs, out, i = [], [], 0
+    while i < len(links):
+        if i in starts:
+            folded = fold_kron_run(*links[i:i + 3], device)
+            T, p2, p1 = folded.S.shape
+            C2, C1 = folded.K_st.shape[0], folded.K_st.shape[1] // T
+            runs.append({"at": i, "T": T, "C1": C1, "C2": C2, "p1": p1, "p2": p2,
+                         "removed": 2})
+            out.append(folded)
+            i += 3
+        else:
+            out.append(links[i].to(device))
+            i += 1
+    count_kron_folds(name, runs, sum(isinstance(link, KroneckerOp) for link in out))
+    if not runs:
+        return op
+    return out[0] if len(out) == 1 else ChainedOp(out)
 
 
 def channel_broadcast_keyed_pool(inshape, outshape, kernelsize, stride,

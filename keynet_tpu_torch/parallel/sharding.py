@@ -137,9 +137,9 @@ def keyed_forward_sharded(knet, mesh, axis="dp"):
     """Return f(x): knet's keyed forward (KeyedModel.run) on a full cipher
     batch with its rows split over ``axis`` and the keys replicated (a
     residual net's shortcut ops too: its plan is per row); every rank gets
-    the whole batch's output."""
-    knet._build()
-    ops = replicate_ops(knet._ops, mesh)
+    the whole batch's output.  The ops are the published ones, as
+    shard_keynet_ops takes them."""
+    ops = replicate_ops(knet.published_ops(), mesh)
 
     def f(x):
         precision()
@@ -545,14 +545,15 @@ def shard_keynet_ops(knet, mesh, tp_axis="tp", min_tp_bytes=32 * 1024 * 1024):
     a channel-broadcast pool of at least ``min_tp_bytes`` shards its
     spatial factor; chains of at least ``min_tp_bytes // 8`` shard their
     shardable links (tp_shard_chain_op).  Everything else replicates, moved
-    to the mesh's device.  A residual net's shortcut ops follow its stages'
-    ops in ``knet._ops`` and take the same decisions (an add needs their
-    whole output, which every tp form gives).  Returns the ops for
-    knet.run(x, ops)."""
-    knet._build()
+    to the mesh's device.  The plan is made from the published ops
+    (``knet.published_ops()``), whose chains keep their Kronecker links:
+    the single-device plan's fold is not taken here.  A residual net's
+    shortcut ops follow its stages' ops there and take the same decisions
+    (an add needs their whole output, which every tp form gives).  Returns
+    the ops for knet.run(x, ops)."""
     tp = mesh.size(tp_axis)
     out = []
-    for op in knet._ops:
+    for op in knet.published_ops():
         if (isinstance(op, DenseOp) and tp > 1
                 and op.W.numel() * 4 >= min_tp_bytes and op.W.shape[1] % tp == 0):
             out.append(TpShardedDenseOp.from_dense_op(op, mesh, tp_axis))

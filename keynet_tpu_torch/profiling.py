@@ -50,7 +50,18 @@ of ``applies`` it left), ``B``, ``x_itemsize``, ``rows_out`` and
 ``rows_in`` (the keyed shortcut's shape, homogeneous coordinate included),
 ``nnz``, ``x_cols`` (the distinct input coordinates its non-zero entries
 read) and ``op_bytes`` (its values and indices on the device).  The
-benchmark computes the least bytes of a request's shortcuts from these."""
+benchmark computes the least bytes of a request's shortcuts from these.
+
+``KRON_FOLDS`` (always on) counts what single-device run plans fold
+(``KeyedModel._build`` through ``ops/kronfactor.plan_op``): ``runs``, the
+Kronecker–TapSum–Kronecker runs folded into one TapSum link, and ``kept``,
+the Kronecker links left in the plans, summed over every plan built; and in
+``layers``, under each folded layer's name (a shortcut's as
+``<relu>+<source>``), the runs of its last plan, one
+``{"at", "T", "C1", "C2", "p1", "p2", "removed"}`` each: the run's first
+link in the published chain, the folded link's taps, channels and pixels
+(in, out) and the links the fold removed.  Such a layer runs in the span
+``keynet.layer/<layer>/TapSumOp`` when the whole chain folds."""
 
 import contextlib
 import os
@@ -65,6 +76,8 @@ LOAD_SECONDS = {}
 GROUPED_ROWS = {"applies": 0, "chunks": 0, "cores": {}}
 # the residual adds KeyedModel.run makes and each shortcut's last apply (see above)
 RESIDUAL = {"applies": 0, "shortcuts": {}}
+# the Kronecker-TapSum-Kronecker runs run plans fold, and each folded layer's runs (see above)
+KRON_FOLDS = {"runs": 0, "kept": 0, "layers": {}}
 _NO_SPAN = contextlib.nullcontext()
 
 
@@ -151,6 +164,15 @@ def count_residual(record, x):
     RESIDUAL["shortcuts"][record["name"]] = record
 
 
+def count_kron_folds(name, runs, kept):
+    """Count the plan op of the layer ``name``: its folded runs' records and
+    the Kronecker links it keeps."""
+    KRON_FOLDS["runs"] += len(runs)
+    KRON_FOLDS["kept"] += kept
+    if runs:
+        KRON_FOLDS["layers"][name] = runs
+
+
 def active():
     """Whether a torch.profiler or autograd profiler is recording."""
     return torch.autograd.profiler._is_profiler_enabled
@@ -223,7 +245,21 @@ def layer_report(knet):
     return rows
 
 
+def folded_layers(knet):
+    """{layer: number of runs its plan folds} for every layer (a shortcut as
+    ``<relu>+<source>``) whose published chain holds
+    Kronecker–TapSum–Kronecker runs that single-device plans fold; read off
+    the published ops, with no plan built."""
+    from .ops.kronfactor import kron_runs
+    from .ops.operators import ChainedOp
+    runs = {name: len(kron_runs(op.ops)) for name, op in knet._plan()
+            if isinstance(op, ChainedOp)}
+    return {name: n for name, n in runs.items() if n}
+
+
 def print_layer_report(knet):
+    """The per-layer table (layer_report), its total, then one line for each
+    layer whose single-device plan folds Kronecker–TapSum–Kronecker runs."""
     rows = layer_report(knet)
     total_nnz = sum(r["nnz"] for r in rows)
     total_b = sum(r["device_bytes"] for r in rows)
@@ -233,4 +269,7 @@ def print_layer_report(knet):
                  r["device_bytes"] / 1e6))
     print("%-12s %-22s %-22s nnz=%-12d %8.2f MB"
           % ("TOTAL", "", "", total_nnz, total_b / 1e6))
+    for name, n in folded_layers(knet).items():
+        print("%-12s folded: %d Kronecker-TapSum-Kronecker run%s, each one TapSum link"
+              % (name, n, "" if n == 1 else "s"))
     return rows

@@ -139,6 +139,7 @@ class KeyedModel:
         self._layers = keyed
         self._outshape = shapes["output"]["outshape"]
         self._ops = None  # device ops, built lazily by _build
+        self._stages = None  # the plan's stages, made by _plan
         self._embeddingkey_op = None
 
     def _key_layers(self, net, shapes, layerkey, keyed, f_module_to_keyedmodule):
@@ -239,6 +240,7 @@ class KeyedModel:
         self._imagekey = imagekey
         self._embeddingkey = embeddingkey
         self._ops = None
+        self._stages = None
         self._embeddingkey_op = None
         return self
 
@@ -247,24 +249,25 @@ class KeyedModel:
     def device(self):
         return self._device
 
-    def _build(self):
-        """Static plan ((layer, None) for a ReLU, (layer, fused_relu) for an
-        op) and the ops, moved to the device once.  A residual net's plan
-        also says which stage outputs to keep (``_keep``: stage -> the
-        stage of its last add) and what each residual ReLU adds (``_adds``:
-        stage -> (source stage, index of its shortcut's op, its counter
-        record)); the shortcut ops follow the stages' ops in ``_ops``."""
-        if self._ops is not None:
-            return
+    def _plan(self):
+        """The run plan's stages, made once: ``_stages`` ((layer, None) for
+        a ReLU, (layer, fused_relu) for an op) and, for a residual net,
+        which stage outputs to keep (``_keep``: stage -> the stage of its
+        last add) and what each residual ReLU adds (``_adds``: stage ->
+        (source stage, index of its shortcut's op, its counter record)).
+        Returns the published ops in plan order, the stages' ops then the
+        shortcuts', each as (name, op), a shortcut named
+        ``<relu>+<source>``."""
+        if self._stages is not None:
+            return self._published
         stages, ops = [], []
         for name, l in self._layers.items():
             if l == "relu":
                 stages.append((name, None))
             else:
                 stages.append((name, bool(l._relu)))
-                ops.append(l.op().to(self._device))
-        self._stages = stages
-        self._keep, self._adds = {}, {}
+                ops.append((name, l.op()))
+        keep, adds = {}, {}
         at = {name: j for j, (name, _) in enumerate(stages)}
         for relu, (src, sc) in self._residuals.items():
             j, js = at.get(relu), at.get(src)
@@ -272,10 +275,27 @@ class KeyedModel:
                 raise ValueError("residual %s <- %s: not a ReLU stage after its source"
                                  % (relu, src))
             op = sc.op()
-            self._adds[j] = (js, len(ops), profiling.residual_record(relu, op))
-            self._keep[js] = max(j, self._keep.get(js, j))
-            ops.append(op.to(self._device))
-        self._ops = ops
+            adds[j] = (js, len(ops), profiling.residual_record(relu, op))
+            keep[js] = max(j, keep.get(js, j))
+            ops.append(("%s+%s" % (relu, src), op))
+        self._stages, self._keep, self._adds, self._published = stages, keep, adds, ops
+        return ops
+
+    def published_ops(self):
+        """The ops as converted or loaded, in plan order (the stages' ops,
+        then the shortcuts'): what the sharded plans of parallel.sharding
+        split, as keynet_tpu's do."""
+        return [op for _, op in self._plan()]
+
+    def _build(self):
+        """The single-device plan's ops (``_ops``), made once on the
+        device: each published op with its chain's Kronecker–TapSum–Kronecker
+        runs folded into one TapSum link (ops/kronfactor.plan_op), in
+        ``_plan``'s order."""
+        if self._ops is not None:
+            return
+        from .ops.kronfactor import plan_op
+        self._ops = [plan_op(op, self._device, name) for name, op in self._plan()]
 
     def _span_names(self, ops):
         """The span of each stage: keynet.layer/<layer>/<OpClass or relu>."""
@@ -287,19 +307,21 @@ class KeyedModel:
     def run(self, x, ops=None, spans=None):
         """The keyed forward on an encrypted homogeneous batch already on the
         device: every layer's op with ReLU between layers
-        (keynet_tpu/system.py:256-270).  ``ops`` replaces the net's own ops
-        one for one, as keynet_tpu's ``_forward(ops, x)`` takes them (the
-        sharded plans of parallel.sharding; a residual net's shortcut ops
-        follow its stages' ops).  ``spans``: whether a profiler
+        (keynet_tpu/system.py:256-270), the single-device plan's ops
+        (``_build``) unless ``ops`` replaces them one for one, as
+        keynet_tpu's ``_forward(ops, x)`` takes them (the sharded plans of
+        parallel.sharding, made from ``published_ops``; a residual net's
+        shortcut ops follow its stages' ops).  ``spans``: whether a profiler
         records (read here when None); each stage then runs in its span.
         Returns the cipher output."""
         precision()
-        self._build()
-        ops = self._ops if ops is None else ops
-        if len(ops) != len(self._ops):
+        if ops is None:
+            self._build()
+            ops = self._ops
+        n = len(self._plan())
+        if len(ops) != n:
             raise ValueError("run: %d ops given for a plan of %d (its stages' ops, then "
-                             "its %d shortcuts')" % (len(ops), len(self._ops),
-                                                     len(self._adds)))
+                             "its %d shortcuts')" % (len(ops), n, len(self._adds)))
         if spans is None:
             spans = profiler_active()
         names = self._span_names(ops) if spans else itertools.repeat(None)

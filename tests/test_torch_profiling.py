@@ -59,13 +59,21 @@ def test_layer_report_matches_jax(keyed_pair):
 
 
 def test_print_layer_report_matches_jax(keyed_pair, capsys):
+    """The table and its total as keynet_tpu prints them, then one line for
+    each layer whose run plan folds Kronecker-TapSum-Kronecker runs (the
+    narrow net's conv2)."""
     knj, knt = keyed_pair
     kj.profiling.print_layer_report(knj)
     out_j = capsys.readouterr().out
     rows = kt.profiling.print_layer_report(knt)
-    out_t = capsys.readouterr().out
-    assert out_t == out_j
-    assert len(out_t.splitlines()) == len(rows) + 1      # one line a layer, then TOTAL
+    lines = capsys.readouterr().out.splitlines()
+    table, folded = lines[:len(rows) + 1], lines[len(rows) + 1:]
+    assert "\n".join(table) + "\n" == out_j
+    assert len(out_j.splitlines()) == len(rows) + 1      # one line a layer, then TOTAL
+    want = kt.profiling.folded_layers(knt)
+    assert [line.split()[0] for line in folded] == list(want)
+    assert all("folded: 1 Kronecker-TapSum-Kronecker run," in line for line in folded)
+    assert list(want) == (["conv2"] if knt.layers().get("conv2") else [])
 
 
 def test_stopwatch_spans():

@@ -1,9 +1,11 @@
 """The program's spans on the CPU (keynet_tpu_torch.profiling.annotate), on
 the narrow net of test_torch_profiling.py, which takes the Block-ELL and
 Kronecker routes: under torch.profiler each forward holds keynet.h2d,
-keynet.run (one span a stage, a chained layer's links in order, a
-channel-broadcast pool's inner op) and keynet.decrypt; with no profiler no record_function is made and the
-outputs are bitwise the same; load_keynet records its two phases."""
+keynet.run (one span a stage, named after the op the run plan applies
+there: a folded Kronecker chain's TapSumOp, a chained layer's links in
+order, a channel-broadcast pool's inner op) and keynet.decrypt; with no
+profiler no record_function is made and the outputs are bitwise the same;
+load_keynet records its two phases."""
 
 import io
 
@@ -65,11 +67,33 @@ def _traced(fn):
 
 
 def _stage_spans(knet):
-    names = []
+    """The span of each stage, named after the op the run plan
+    (``knet._ops``) applies there."""
+    knet._build()
+    ops, names = iter(knet._ops), []
     for layer, l in knet.layers().items():
         names.append("keynet.layer/%s/%s" % (layer, "relu" if l == "relu"
-                                             else type(l.op()).__name__))
+                                             else type(next(ops)).__name__))
     return names
+
+
+def _kept_chain(rng):
+    """A one-layer net whose chain keeps its Kronecker links: its first
+    KroneckerOp gathers its input (perm_in), so the run does not fold."""
+    from keynet_tpu_torch.layer import KeyedLayer
+    from keynet_tpu_torch.ops.operators import KroneckerOp, TapSumOp
+    C, p, T = 2, 4, 3
+
+    def mk(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    chain = ChainedOp([KroneckerOp(mk(C, C), mk(p, p), mk(C * p),
+                                   perm_in=rng.permutation(C * p)),
+                       TapSumOp(mk(T, C, C), mk(T, p, p), mk(C * p)),
+                       KroneckerOp(mk(C, C), mk(p, p), mk(C * p))])
+    kl = KeyedLayer.__new__(KeyedLayer)
+    kl._op, kl._relu = chain, True
+    return kt.KeyedModel.from_layers({"kept": kl}, (C * p, 1, 1), device="cpu"), chain
 
 
 def test_each_forward_holds_h2d_run_decrypt(keyed):
@@ -88,22 +112,40 @@ def test_run_holds_one_span_a_stage_in_order(keyed):
     assert [n for n, _ in run[1]] == _stage_spans(knet)
     classes = {n.rsplit("/", 1)[1] for n, _ in run[1]}
     assert "ChainedOp" in classes and "DenseOp" in classes
+    # conv2 publishes a Kronecker-TapSum-Kronecker chain: the plan runs it folded
+    assert [type(op).__name__ for op in knet.layers()["conv2"].op().ops] == \
+        ["KroneckerOp", "TapSumOp", "KroneckerOp"]
+    assert ("keynet.layer/conv2/TapSumOp", []) in run[1]
 
 
 def test_chained_layers_hold_their_links_in_order(keyed):
     _, knet, xc = keyed
     _, roots = _traced(lambda: knet.forward(xc))
     stages = dict(roots[0][1][1][1])
+    knet._build()
+    plan = iter(knet._ops)
     seen = set()
     for layer, l in knet.layers().items():
-        if l == "relu" or not isinstance(l.op(), ChainedOp):
+        op = None if l == "relu" else next(plan)
+        if not isinstance(op, ChainedOp):
             continue
-        links = ["keynet.link/%d/%s" % (j, type(op).__name__) for j, op in enumerate(l.op().ops)]
+        links = ["keynet.link/%d/%s" % (j, type(link).__name__) for j, link in enumerate(op.ops)]
         got = stages["keynet.layer/%s/ChainedOp" % layer]
         assert [n for n, _ in got] == links
         assert all(not children for _, children in got)
         seen |= {n.rsplit("/", 1)[1] for n in links}
-    # the narrow net takes the Block-ELL and the Kronecker routes
+    # the narrow net's chain that does not fold takes the Block-ELL route
+    assert "PermutedBlockSparseOp" in seen
+    # a chain whose Kronecker link gathers keeps its three links, in order
+    rng = np.random.default_rng(7)
+    kept, chain = _kept_chain(rng)
+    x = torch.cat([torch.from_numpy(rng.standard_normal((2, chain.shape[1] - 1))
+                                    .astype(np.float32)), torch.ones(2, 1)], dim=1)
+    _, roots = _traced(lambda: kept.run(x))
+    links = ["keynet.link/%d/%s" % (j, type(link).__name__) for j, link in enumerate(chain.ops)]
+    assert roots == [("keynet.run", [("keynet.layer/kept/ChainedOp",
+                                      [(n, []) for n in links])])]
+    seen |= {n.rsplit("/", 1)[1] for n in links}
     assert {"PermutedBlockSparseOp", "KroneckerOp", "TapSumOp"} <= seen
 
 

@@ -192,9 +192,8 @@ def rank_checks(rank, world, shape, inputs):
 
     # the real stochastic conversion, checked equal on every rank
     sensor, knet = stochastic_lenet(kt)
-    knet._build()
     digest = np.array([float(sum(float(t.double().sum()) for t in op.arrays().values()))
-                       for op in knet._ops])
+                       for op in knet.published_ops()])
     sums = [None] * world
     torch.distributed.all_gather_object(sums, digest)
     out["same_conversion"] = all(np.array_equal(s, sums[0]) for s in sums)
