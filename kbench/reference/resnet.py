@@ -9,11 +9,19 @@ besides:
 
 - an ``avgpool`` entry with ``"global": true`` is the mean over each
   channel's H×W map (output (C, 1, 1));
-- a ``relu`` entry with ``"residual": "<layer>"`` first adds the option-A
-  shortcut (He et al., arXiv:1512.03385 §3.3) of that earlier layer's
-  output: the identity where the shapes agree; where they differ, every
-  s-th pixel ``x[:, :, ::s, ::s]`` cut to (H//s, W//s), with zero channels
-  appended after the first C.
+- a ``conv`` entry with ``"input": "<layer>"`` is a side branch, the
+  option-B projection shortcut (§3.3; torchvision's ``downsample``): the
+  conv above applied to that earlier layer's output, kept under its own
+  name; the chain goes on from its current output;
+- a ``relu`` entry with ``"residual": "<layer>"`` first adds that layer's
+  output: a side conv's as it is, at the same shape or a ValueError;
+  another layer's through the option-A shortcut (§3.3): the identity where
+  the shapes agree; where they differ, every s-th pixel
+  ``x[:, :, ::s, ::s]`` cut to (H//s, W//s), with zero channels appended
+  after the first C.
+
+A side conv is written just before the ReLU that adds it, after its
+block's last conv.
 """
 
 import torch
@@ -33,18 +41,27 @@ def shortcut(x, like):
     return F.pad(x, (0, 0, 0, 0, 0, C - x.shape[1]))
 
 
+def conv(l, params, x):
+    """The conv entry ``l`` on x, with reference/cnn.py's semantics."""
+    H, W = x.shape[2], x.shape[3]
+    s, k = l["stride"], l["k"]
+    x = F.conv2d(x, params[l["name"]]["weight"], None, stride=s, padding=k // 2)
+    return x[:, :, :H // s, :W // s] + params[l["name"]]["bias"][None, :, None, None]
+
+
 def forward(layers, params, x):
     """The source network on a (N, C, H, W) float32 batch; ``params`` maps a
     layer name to {"weight", "bias"} tensors on x's device."""
-    sources = {l["residual"] for l in layers if l.get("residual")}
+    sources = {l[key] for l in layers for key in ("residual", "input") if l.get(key)}
+    sides = {l["name"] for l in layers if l.get("input")}
     saved = {}
     for l in layers:
         kind = l["kind"]
+        if l.get("input"):
+            saved[l["name"]] = conv(l, params, saved[l["input"]])
+            continue
         if kind == "conv":
-            H, W = x.shape[2], x.shape[3]
-            s, k = l["stride"], l["k"]
-            x = F.conv2d(x, params[l["name"]]["weight"], None, stride=s, padding=k // 2)
-            x = x[:, :, :H // s, :W // s] + params[l["name"]]["bias"][None, :, None, None]
+            x = conv(l, params, x)
         elif kind == "avgpool" and l.get("global"):
             x = x.mean((2, 3), keepdim=True)
         elif kind == "avgpool":
@@ -53,8 +70,14 @@ def forward(layers, params, x):
             lo, hi = (k - 1) // 2, k // 2
             x = F.avg_pool2d(F.pad(x, (lo, hi, lo, hi)), k, s)[:, :, :H // s, :W // s]
         elif kind == "relu":
-            if l.get("residual"):
-                x = x + shortcut(saved[l["residual"]], x)
+            res = l.get("residual")
+            if res in sides:
+                if saved[res].shape != x.shape:
+                    raise ValueError("%s adds %s of shape %s to %s" % (
+                        l["name"], res, tuple(saved[res].shape), tuple(x.shape)))
+                x = x + saved[res]
+            elif res:
+                x = x + shortcut(saved[res], x)
             x = torch.clamp_min(x, 0.0)
         elif kind == "linear":
             x = x.reshape(x.shape[0], -1)

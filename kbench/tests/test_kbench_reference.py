@@ -155,6 +155,7 @@ def test_images_follow_the_seed_and_the_range():
 
 def test_reference_turns_tf32_off_and_back():
     before = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with cnn.ieee_f32():
@@ -163,3 +164,6 @@ def test_reference_turns_tf32_off_and_back():
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+        # the legacy flag alone leaves torch (2.13 here) reading the precision
+        # as mixed, and get_float32_matmul_precision raises in later tests
+        torch.set_float32_matmul_precision(precision)

@@ -168,11 +168,13 @@ def _reader(name):
 def test_readers(tmp_path, monkeypatch):
     monkeypatch.setattr(spans, "TRACES", str(tmp_path))
     rec = _write(tmp_path, _trace(), cell="r.b1")
-    want = {"blocksparse_ms.batch": 0.1, "kronecker_ms.batch": 0.08, "tapsum_ms.batch": 0.1,
+    want = {"blocksparse_ms.batch": 0.1, "tapsum_ms.batch": 0.1,
             "launches_per_req.batch": 4.0, "h2d_ms.batch": 0.04}
     for name, v in want.items():
         assert _reader(name).read(rec) == pytest.approx(v, rel=1e-12), name
         assert _reader(name).read({"cell": "none.b1", "trace": {"span_us": 1.0}}) is None
+    # the kind that no reader reports since the folded plans keep no Kronecker link
+    assert spans.per_request_ms(rec, "kronecker") == pytest.approx(0.08, rel=1e-12)
     prof = types.SimpleNamespace(LOAD_SECONDS={"read": 1.5, "restore": 0.25})
     monkeypatch.setitem(sys.modules, "keynet_tpu_torch.profiling", prof)
     assert _reader("load_read_s").read(rec) == 1.5

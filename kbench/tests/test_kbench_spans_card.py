@@ -1,6 +1,6 @@
 """Card-only test of the program's spans as the benchmark reads them (marked
 ``cuda``; it skips without a card): a traced run of the AllConvNet batch
-cell reports the seven span and load metrics, the reducer charges at least
+cell reports the six span and load metrics, the reducer charges at least
 99% of the window's kernel time to program spans, and every slot-walk
 launch (a ctypes launch from a library on the static CUDA runtime) lands
 in conv1's Block-ELL link.
@@ -21,8 +21,8 @@ from kbench import spans
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CELL = "allconv-stoch-32.b1024"
-METRICS = ("blocksparse_ms.batch", "kronecker_ms.batch", "tapsum_ms.batch",
-           "launches_per_req.batch", "h2d_ms.batch", "load_read_s", "load_restore_s")
+METRICS = ("blocksparse_ms.batch", "tapsum_ms.batch", "launches_per_req.batch",
+           "h2d_ms.batch", "load_read_s", "load_restore_s")
 
 
 @pytest.fixture

@@ -5,8 +5,8 @@ cannot change the yardstick it is measured by.
   ``keynet_tpu_torch.bench_kernels.PEAKS`` gives them.
 - ``source_flops``: the FLOPs of one image through the source network of a
   configuration's layer list (2 per multiply-add of every conv and linear
-  layer; pools, ReLUs and biases left out).  They do not depend on what
-  implements the forward.
+  layer, side-branch convs included; pools, ReLUs, residual adds and biases
+  left out).  They do not depend on what implements the forward.
 - ``slot_walk_work`` and ``periodic_work``: the FLOPs and least bytes of one
   launch of the Block-ELL slot walk and of the periodic kernel, copied from
   ``bench_kernels.work`` and chip_smoke's ``periodic_work``: each distinct
@@ -44,27 +44,62 @@ def step_peak(precision):
     return PEAKS["tf32"] if precision == "default" else PEAKS["f32"]
 
 
+def _conv(l, shape):
+    """The (C, H, W) a conv entry gives from SHAPE, and its FLOPs."""
+    C, H, W = shape
+    if l["in"] != C:
+        raise ValueError("%s takes %d channels, gets %d" % (l["name"], l["in"], C))
+    out = (l["out"], H // l["stride"], W // l["stride"])
+    return out, 2 * l["in"] * l["k"] * l["k"] * out[0] * out[1] * out[2]
+
+
 def source_flops(layers, inshape):
-    """FLOPs of one image through the layer list (2 per multiply-add)."""
-    C, H, W = inshape
-    flops = 0
+    """FLOPs of one image through the layer list (2 per multiply-add).
+
+    The list is a chain: each entry reads the output of the one before.  A
+    ``conv`` entry with ``"input": "<earlier layer>"`` is a side branch (a
+    projection shortcut): it reads that layer's output, does not move the
+    chain, and keeps its own output under its name, which a ``relu``
+    entry's ``"residual"`` then adds as it is, shape for shape.  ValueError
+    for a layer that takes another width than it gets, an ``input`` that
+    names no earlier layer or is set on another kind than ``conv``, and a
+    side conv added before it is computed or at another shape."""
+    shape = tuple(inshape)
+    named = {l["input"] for l in layers if l.get("input")}
+    sides = {l["name"] for l in layers if l.get("input")}
+    kept, flops = {}, 0
     for l in layers:
         kind = l["kind"]
+        if l.get("input"):
+            if kind != "conv":
+                raise ValueError("%s: only a conv may read another layer's output"
+                                 % l["name"])
+            if l["input"] not in kept:
+                raise ValueError("%s reads %r, no earlier layer" % (l["name"], l["input"]))
+            kept[l["name"]], f = _conv(l, kept[l["input"]])
+            flops += f
+            continue
         if kind == "conv":
-            if l["in"] != C:
-                raise ValueError("%s takes %d channels, gets %d" % (l["name"], l["in"], C))
-            H, W, C = H // l["stride"], W // l["stride"], l["out"]
-            flops += 2 * l["in"] * l["k"] * l["k"] * C * H * W
+            shape, f = _conv(l, shape)
+            flops += f
         elif kind == "avgpool":
-            H, W = H // l["stride"], W // l["stride"]
+            shape = (shape[0], shape[1] // l["stride"], shape[2] // l["stride"])
         elif kind == "linear":
+            C, H, W = shape
             if l["in"] != C * H * W:
                 raise ValueError("%s takes %d features, gets %d"
                                  % (l["name"], l["in"], C * H * W))
             flops += 2 * l["in"] * l["out"]
-            C, H, W = l["out"], 1, 1
-        elif kind not in ("relu", "dropout"):
+            shape = (l["out"], 1, 1)
+        elif kind == "relu":
+            side = l.get("residual")
+            if side in sides and kept.get(side) != shape:
+                raise ValueError("%s adds %s of shape %s to %s" % (
+                    l["name"], side, kept.get(side, "not yet computed"), shape))
+        elif kind != "dropout":
             raise ValueError("unknown layer kind %r" % kind)
+        if l["name"] in named:
+            kept[l["name"]] = shape
     return flops
 
 
